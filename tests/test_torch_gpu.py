@@ -1,0 +1,70 @@
+"""Kernels B1 and B2 on the card against their plain PyTorch versions.
+
+These need a CUDA card and nvcc (the kernels have no CPU mode); without a
+card they skip. Run them on a GPU host with:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu
+
+Limits: B1 <= 1 LSB inside each valid region (IDCT summation order), B2
+exactly equal (same float32 operations in the same order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from imageprocessor_tpu_torch.ops import fused_resample as fr
+from imageprocessor_tpu_torch.ops import jpeg_kernels
+from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _coefs(dims, h, w, fh, fw, seed, device):
+    rng = np.random.default_rng(seed)
+    b = len(dims)
+    yc = rng.integers(-512, 512, (b, h, w)).astype(np.int16)
+    cbc = rng.integers(-256, 256, (b, h // fh, w // fw)).astype(np.int16)
+    crc = rng.integers(-256, 256, (b, h // fh, w // fw)).astype(np.int16)
+    qt = (np.abs(rng.normal(6, 2, (b, 3, 8, 8))) + 1).astype(np.float32)
+    cv = np.array([[-(-vh // (8 * fh)) * 8, -(-vw // (8 * fw)) * 8]
+                   for vh, vw in dims], np.int32)
+    return [torch.from_numpy(a).to(device) for a in (yc, cbc, crc, qt, cv)]
+
+
+@pytest.mark.parametrize("fh,fw", [(2, 2), (1, 2), (2, 1), (1, 1)])
+def test_b1_matches_plain(cuda, fh, fw):
+    dims = [(200, 200), (190, 196)]
+    args = _coefs(dims, 208, 208, fh, fw, seed=fh * 10 + fw, device=cuda)
+    n = jpeg_kernels.launches
+    got = jpeg_kernels.decode_coefs(*args, fh, fw, (200, 200))
+    want = decode_ycbcr(*args, fh=fh, fw=fw, out_h=200, out_w=200)
+    torch.cuda.synchronize()
+    assert jpeg_kernels.launches == n + 1
+    for i, (h, w) in enumerate(dims):
+        assert (got[i, :, :h, :w].int() - want[i, :, :h, :w].int()).abs().max() <= 1
+
+
+def test_b2_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    src = torch.from_numpy(rng.integers(0, 256, (2, 3, 384, 512),
+                                        dtype=np.uint8)).to(cuda)
+    src_hw = np.array([[300, 400], [384, 256]])
+    cy, chw = fr.center_crop_windows(src_hw)
+    thumb = fr.make_taps(src_hw, np.full((2, 2), 200), (200, 200), (384, 512),
+                         cy, chw).to(cuda)
+    resize = fr.make_taps(src_hw, np.array([[768, 1024], [768, 512]]),
+                          (768, 1024), (384, 512)).to(cuda)
+    n = fr.launches
+    a, b = fr.fused_resample(src, thumb, resize)
+    torch.cuda.synchronize()
+    assert fr.launches == n + 1
+    assert torch.equal(a, fr.resample_plain(src, thumb))
+    assert torch.equal(b, fr.resample_plain(src, resize))
