@@ -27,7 +27,33 @@ Phases (any failure exits non-zero):
    throughput and the engine's stage times;
 6. timing  — CUDA events after warm-up at 8 x 3072 x 4096: each kernel
    and its plain version, and the composed decode -> resample step; the
-   host clock times one group's tap tables (build and upload).
+   host clock times one group's tap tables (build and upload);
+7. B3      — the JPEG encode front half against its plain version: mixed
+   valid dims with pad rows (64x256, 384x512, 208x208) and
+   8 x 3072 x 4096 (limit: 1 quantization step inside each image's
+   ceil16(valid) grid);
+8. B4      — the single-op resample against its plain version: crop and
+   aspect thumbnails, a downscale and an upscale resize (limit: 1 LSB);
+9. form plans — the seven plans of the upload form (thumbnail, resize,
+   watermark flags) through the worker's steps on phase 5's sources, with
+   the splice on and with IMAGEPROCESSOR_JPEG_SPLICE=0, then a PNG and a
+   GIF source with every flag. It checks every task COMPLETED, the
+   artifacts' dims, that a watermark artifact differs from its
+   unwatermarked twin inside the text box and nowhere else (the source
+   itself when spliced; the same path with a blank text otherwise), the
+   launch counts of each plan (B2 on the thumbnail+resize pair, B4 on a
+   lone resample, B3 only where a watermark is blended on the device,
+   none with the splice on), and that the group outputs match the plain
+   versions; each plan's line carries the engine's stage times;
+10. timing — CUDA events at 8 x 3072 x 4096: B3 and B4 (resize to
+   1024 x 768) and their plain versions, the blend, and the composed
+   splice-off step B1 -> B2 -> blend -> B3.
+
+The watermark's font is the reference's lookup (IMAGEPROCESSOR_FONT, the
+reference package's assets/fonts, matplotlib's DejaVu Sans); where none
+of those exists, phase 1 points IMAGEPROCESSOR_FONT at a TrueType font
+found on the host, or at Pillow's bundled default font written under
+build/, and prints which.
 
 The line before the last is the card's name and power limit as
 nvidia-smi gives them, the one before it a JSON summary of the kernels;
@@ -37,6 +63,8 @@ is imported: neither jax nor the reference package imageprocessor_tpu.
 
 from __future__ import annotations
 
+import glob
+import io
 import json
 import os
 import shutil
@@ -48,10 +76,13 @@ import uuid
 
 import numpy as np
 import torch
+from PIL import Image as PILImage
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B, H, W = 8, 3072, 4096          # the main path's 12 MP group
 LSB_LIMIT = 1
+STEP_LIMIT = 1                   # B3: quantization steps
+WM_MARGIN = 32                   # px past the text box a watermark may touch
 
 
 def log(msg: str) -> None:
@@ -70,11 +101,18 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of fn, by CUDA events. The stream is first held
+    busy (~30 ms) so the host enqueues every call before the device
+    reaches the first event: a call that never waits on the device is
+    timed without the host's launch overhead. A call that synchronizes
+    (a pageable host-to-device copy) still waits, so its time includes
+    the host's share."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     e0.record()
     for _ in range(iters):
         fn()
@@ -152,6 +190,71 @@ def load_oracle():
     return mod
 
 
+def ensure_font(wm) -> str:
+    """The watermark font: the reference's lookup when it finds one, else
+    a TrueType font on the host (DejaVu Sans first), else Pillow's bundled
+    default font written under build/. Sets IMAGEPROCESSOR_FONT for the
+    last two."""
+    try:
+        path = wm._default_font_path()
+        if os.path.exists(path):
+            return path
+    except ImportError:   # no matplotlib: the reference's last fallback
+        pass
+    import site
+
+    roots = ["/usr/share/fonts", "/usr/local/share/fonts", *site.getsitepackages()]
+    found = sorted({f for r in roots
+                    for f in glob.glob(os.path.join(r, "**", "*.ttf"), recursive=True)},
+                   key=lambda f: (os.path.basename(f) != "DejaVuSans.ttf", f))
+    if found:
+        path = found[0]
+    else:
+        from PIL import ImageFont
+
+        path = os.path.join(REPO, "build", "fonts", "pillow-default.ttf")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(ImageFont.load_default(36).font_bytes)
+    os.environ["IMAGEPROCESSOR_FONT"] = path
+    wm._DEFAULT_FONT_PATH = None
+    return wm._default_font_path()
+
+
+def rgb_case(dims, h, w, seed, pad_to=0):
+    """Seeded (B, 3, h, w) u8 canvases and valid dims; pad rows get (1, 1)
+    the way the engine passes them to B3."""
+    rng = np.random.default_rng(seed)
+    b = max(len(dims), pad_to)
+    rgb = torch.from_numpy(rng.integers(0, 256, (b, 3, h, w), dtype=np.uint8)).cuda()
+    vh = np.ones((b, 2), np.int32)
+    vh[:len(dims)] = dims
+    return rgb, torch.from_numpy(vh).cuda()
+
+
+def coef_err(got, want, dims) -> int:
+    """Max quantization-step difference over each image's ceil16(valid)
+    grid of the three coefficient planes."""
+    err = 0
+    for a, b, div in zip(got, want, (1, 2, 2)):
+        for i, (h, w) in enumerate(dims):
+            gh, gw = -(-h // 16) * 16 // div, -(-w // 16) * 16 // div
+            err = max(err, int((a[i, :gh, :gw].int() - b[i, :gh, :gw].int())
+                               .abs().max()))
+    return err
+
+
+def text_box(wm, text: str, position: str, h: int, w: int):
+    """(y0, y1, x0, x1): the glyphs' nonzero coverage on an h x w image."""
+    tile = wm.rasterize_text(text, 36.0)
+    bx, by = wm.anchor_baseline(position, w, h, tile)
+    rows = np.flatnonzero(tile.coverage.any(axis=1))
+    cols = np.flatnonzero(tile.coverage.any(axis=0))
+    y0, x0 = int(by) - tile.ascent, int(bx)
+    return (max(y0 + rows[0], 0), min(y0 + rows[-1] + 1, h),
+            max(x0 + cols[0], 0), min(x0 + cols[-1] + 1, w))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -177,10 +280,22 @@ def main() -> int:
     from imageprocessor_tpu_torch.models.plan import normalize_operations
     from imageprocessor_tpu_torch.ops import fused_resample as fr
     from imageprocessor_tpu_torch.ops import jpeg_kernels
+    from imageprocessor_tpu_torch.ops import planar_resample as pr
+    from imageprocessor_tpu_torch.ops import watermark as wm
     from imageprocessor_tpu_torch.ops.coords import keep_aspect_dims
     from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
+    from imageprocessor_tpu_torch.ops.jpeg_encode import (
+        encode_420_plain,
+        quality_qtables,
+    )
     from imageprocessor_tpu_torch.runtime import hostcodec
-    from imageprocessor_tpu_torch.runtime.batcher import BatchItem, group_items
+    from imageprocessor_tpu_torch.runtime.batcher import (
+        BatchItem,
+        coef_factors,
+        group_items,
+        quantize_batch,
+    )
+    from imageprocessor_tpu_torch.runtime.codecs import decode_image
     from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
     from imageprocessor_tpu_torch.storage import (
         LocalFSObjectStore,
@@ -196,6 +311,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[1 device] {name}; nvidia-smi: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    log(f"[1 device] watermark font: {ensure_font(wm)}")
 
     # ---- 2. build
     t0 = time.monotonic()
@@ -203,8 +319,8 @@ def main() -> int:
     t1 = time.monotonic()
     hostcodec.library()
     t2 = time.monotonic()
-    log(f"[2 build] kernels (nvcc sm_90a) {t1 - t0:.2f} s, host entropy scan "
-        f"(g++) {t2 - t1:.2f} s")
+    log(f"[2 build] kernels (one nvcc sm_90a per csrc/*.cu, in parallel) "
+        f"{t1 - t0:.2f} s, host JPEG + GIF library (g++) {t2 - t1:.2f} s")
 
     # ---- 3. B1 vs plain
     b1_err = 0
@@ -442,6 +558,284 @@ def main() -> int:
         f"first run {wall:.3f} s = {len(work) / wall:.2f} images/s, warm rerun "
         f"{warm:.3f} s = {len(work) / warm:.2f} images/s (host clock)")
 
+    # ---- 7. B3 vs plain
+    qt85 = torch.from_numpy(quality_qtables(85).astype(np.float32)).cuda()
+    b3_err = 0
+    for ch, cw, dims in ((64, 256, [(60, 250), (64, 256), (40, 130)]),
+                         (384, 512, [(380, 500), (384, 512), (200, 260)]),
+                         (208, 208, [(200, 200), (190, 196)])):
+        rgb, vh = rgb_case(dims, ch, cw, seed=ch + cw, pad_to=4)
+        got = jpeg_kernels.encode_420(rgb, vh, qt85)
+        want = encode_420_plain(rgb, vh, qt85)
+        b3_err = max(b3_err, coef_err(got, want, dims + [(1, 1)] * (4 - len(dims))))
+    big_vh = torch.from_numpy(src_hw.astype(np.int32)).cuda()
+    err = coef_err(jpeg_kernels.encode_420(src, big_vh, qt85),
+                   encode_420_plain(src, big_vh, qt85), src_hw.tolist())
+    b3_err = max(b3_err, err)
+    if b3_err > STEP_LIMIT:
+        fail(f"B3 vs plain: {b3_err} steps")
+    log(f"[7 B3] 3 cases with pad rows + 8x3072x4096: max |kernel - plain| = "
+        f"{b3_err} steps (limit {STEP_LIMIT})")
+
+    # ---- 8. B4 vs plain
+    b4_err = 0
+    for t in (taps_t, taps_a, taps_r,
+              fr.make_taps(src_hw, resize_hw(src_hw, 6000, 4500), (4500, 6000),
+                           (H, W)).to("cuda")):
+        err = int((pr.planar_resample(src, t).int()
+                   - fr.resample_plain(src, t).int()).abs().max())
+        b4_err = max(b4_err, err)
+    if b4_err > LSB_LIMIT:
+        fail(f"B4 vs plain: {b4_err} LSB")
+    log(f"[8 B4] crop + aspect thumbnails, 1024x768 resize, 6000x4500 upscale: "
+        f"max |kernel - plain| = {b4_err} LSB (limit {LSB_LIMIT})")
+
+    # ---- 9. every upload-form plan through the worker's steps
+    thumb, resize = default_ops
+
+    def mark(text="© ImageProcessor"):
+        return OperationParams(OperationType.WATERMARK, {
+            "text": text, "opacity": 0.5, "position": "bottom-right"})
+
+    form = {flags: [op for flag, op in zip("trw", (thumb, resize, mark()))
+                    if flag in flags]
+            for flags in ("t", "r", "w", "tr", "tw", "rw", "trw")}
+    counters = {"B1": (jpeg_kernels, "launches"), "B2": (fr, "launches"),
+                "B3": (jpeg_kernels, "encode_launches"), "B4": (pr, "launches")}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
+    store = LocalFSObjectStore(os.path.join(workdir, "objects"))
+    meta = SQLiteMetadataStore(os.path.join(workdir, "meta.db"))
+    broker = MemoryBroker()
+    broker.create_topic(KAFKA_TOPIC_PROCESSING, 3)
+    engine = TorchProcessingEngine(store, device="cuda", batch_size=B)
+
+    def worker_steps(blobs_in, ops, fmt="jpeg"):
+        """Upload rows + task JSON -> poll -> process_tasks -> rows -> ack,
+        with every launch count set to 0 just before process_tasks and
+        read just after. Returns ([(task, result)] in upload order,
+        launches, wall seconds)."""
+        ids = []
+        for k, blob in enumerate(blobs_in):
+            path = store.save_original(f"form{k}", blob, "application/octet-stream")
+            image_id = str(uuid.uuid4())
+            meta.save_image(Image(id=image_id, original_filename=f"form{k}",
+                                  original_size=len(blob), mime_type="image/jpeg",
+                                  status=ImageStatus.PROCESSING,
+                                  original_path=path, bucket="images"))
+            broker.produce(KAFKA_TOPIC_PROCESSING, image_id.encode(), ProcessingTask(
+                id=str(uuid.uuid4()), image_id=image_id, original_path=path,
+                bucket="images", operations=ops, format=fmt).to_json())
+            ids.append(image_id)
+        msgs = broker.poll(KAFKA_TOPIC_PROCESSING, KAFKA_GROUP_ID,
+                           max_n=len(ids), lease_s=600)
+        tasks = [ProcessingTask.from_json(m.value) for m in msgs]
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        METRICS.reset()
+        t0 = time.monotonic()
+        results = engine.process_tasks(
+            [(t, store.get_object(t.original_path)) for t in tasks])
+        wall = time.monotonic() - t0
+        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        for msg, task, res in zip(msgs, tasks, results):
+            for art in res.artifacts:
+                meta.save_processed_image(ProcessedImage(
+                    id="", image_id=task.image_id, operation=art.operation,
+                    path=art.path, size=art.size, mime_type=art.mime_type,
+                    format=art.format, status="completed"))
+            meta.update_status(task.image_id, res.result.status)
+            broker.ack(msg)
+        by_id = {t.image_id: (t, r) for t, r in zip(tasks, results)}
+        for image_id in ids:
+            task, res = by_id[image_id]
+            if meta.get_image(image_id).status is not ImageStatus.COMPLETED:
+                fail(f"form task {ops}: {res.result.status} {res.result.error}")
+            rows = {p.operation.value if hasattr(p.operation, "value") else p.operation
+                    for p in meta.list_processed(image_id)}
+            if rows != {op.type.value for op in ops}:
+                fail(f"form task {ops}: processed rows {rows}")
+        return [by_id[i] for i in ids], counts, wall
+
+    def stage_line() -> str:
+        """The engine's stage metrics of the last worker_steps call: the
+        largest group's device and finish (encode, emit, splice, save)
+        stages, and the splice emit per image."""
+        snap = METRICS.snapshot()
+        t = snap["timings"]
+        parts = [f"{k[7:]} max {t[k]['max']:.1f}" for k in (
+            "engine_decode_ms", "engine_device_ms", "engine_encode_ms") if k in t]
+        if "engine_splice_emit_ms" in t:
+            parts.append(f"splice_emit_ms p50 {t['engine_splice_emit_ms']['p50']:.2f}")
+        n = int(snap["counters"].get("engine_splice_images", 0))
+        return "; ".join(parts) + f"; spliced {n}"
+
+    def artifact_px(res, op):
+        return decode_image(store.get_object(res.result.processed_paths[op]))[0]
+
+    def check_dims(res, h, w):
+        for op, path in res.result.processed_paths.items():
+            got = decode_image(store.get_object(path))[0].shape[:2]
+            want = {"thumbnail": (200, 200), "watermark": (h, w),
+                    "resize": keep_aspect_dims(w, h, 1024, 768)[::-1]}[op]
+            if tuple(got) != tuple(want):
+                fail(f"{path}: {got} != {want}")
+
+    def check_mark(got, twin, h, w, what):
+        """got differs from twin inside the text box and nowhere else."""
+        y0, y1, x0, x1 = text_box(wm, "© ImageProcessor", "bottom-right", h, w)
+        if not (got[y0:y1, x0:x1] != twin[y0:y1, x0:x1]).any():
+            fail(f"{what}: no watermark inside the text box")
+        outside = np.ones((h, w), bool)
+        outside[max(y0 - WM_MARGIN, 0):y1 + WM_MARGIN,
+                max(x0 - WM_MARGIN, 0):x1 + WM_MARGIN] = False
+        if (got != twin)[outside].any():
+            fail(f"{what}: pixels changed outside the text box")
+
+    def plain_group_check(ops):
+        """Group outputs of a plan vs the plain versions on the plain
+        decode: resamples <= 1 LSB, B3 canvases <= 1 step."""
+        plan = normalize_operations(ops)
+        items = []
+        for k, blob in enumerate(blobs):
+            arr, _f, layout, hw, sctx = engine.decode_for_plan_ex(blob, plan, "jpeg")
+            items.append(BatchItem(item_id=str(k), image=arr, plan_key=plan.group_key(),
+                                   payload=(k, None, "jpeg", plan), layout=layout,
+                                   valid_hw=hw, splice=sctx))
+        lsb = step = 0
+        for group in group_items(items, max_batch=B):
+            _, outs, out_hws, _ = engine.device_group(group)
+            packed, ghw = group.pack(pad_batch_to=quantize_batch(len(group.items)))
+            fh, fw = coef_factors(group.layout)
+            dec = decode_ycbcr(*(torch.from_numpy(a).cuda() for a in packed),
+                               fh=fh, fw=fw, out_h=group.bucket[0],
+                               out_w=group.bucket[1])
+            specs = plan_output_specs(plan)
+            taps = step_taps(group.bucket, ghw, out_hws, specs, torch.device("cuda"))
+            dims = [it.hw for it in group.items]
+            for oi, op in enumerate(plan.ops):
+                if oi in taps:
+                    want = fr.resample_plain(dec, taps[oi]).cpu().numpy()
+                    for i in range(len(dims)):
+                        oh, ow = out_hws[oi][i] if oi in out_hws else want.shape[2:]
+                        lsb = max(lsb, int(np.abs(
+                            outs[oi][i][:, :oh, :ow].astype(int)
+                            - want[i][:, :oh, :ow].astype(int)).max()))
+            for oi, op in enumerate(plan.ops):
+                if op.type is not OperationType.WATERMARK:
+                    continue
+                if outs[oi][0] != "coef420":
+                    fail(f"plan {ops}: watermark not encoded by B3")
+                tile = wm.quantize_tile(wm.rasterize_text(op.text, op.font_size))
+                r, g, b, a = wm.resolve_color(op.font_color, op.opacity)
+                wm.watermark_planar_(dec, ghw, tile, (r, g, b), a / 255.0, op.position)
+                mh = -(-max(h for h, _ in dims) // 16) * 16
+                mw = -(-max(w for _, w in dims) // 16) * 16
+                canvas = torch.nn.functional.pad(
+                    dec[:, :, :mh, :mw], (0, max(mw - dec.shape[3], 0),
+                                          0, max(mh - dec.shape[2], 0)))
+                vh = np.ones((dec.shape[0], 2), np.int32)
+                vh[:len(dims)] = dims
+                want = encode_420_plain(canvas, torch.from_numpy(vh).cuda(), qt85)
+                step = max(step, coef_err([torch.from_numpy(x) for x in outs[oi][1:4]],
+                                          [x.cpu() for x in want], dims))
+        return lsb, step
+
+    form_launches = {"B3": 0, "B4": 0}
+    form_lsb = form_step = 0
+    src_px = [decode_image(b)[0] for b in blobs]
+    try:
+        for splice_on in (True, False):
+            os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "1" if splice_on else "0"
+            mode = "splice on" if splice_on else "splice off"
+            if splice_on:
+                twins = src_px
+            else:   # the same path with a blank text: the unwatermarked JPEG
+                pairs, _, _ = worker_steps(blobs, [mark(" ")])
+                twins = [artifact_px(r, "watermark") for _, r in pairs]
+            for flags, ops in form.items():
+                pairs, counts, wall = worker_steps(blobs, ops)
+                stages = stage_line()
+                n_resample = sum(f in flags for f in "tr")
+                want_b3 = "w" in flags and not splice_on
+                if ((counts["B2"] > 0) != (n_resample == 2)
+                        or (counts["B4"] > 0) != (n_resample == 1)
+                        or (counts["B3"] > 0) != want_b3):
+                    fail(f"plan {flags} ({mode}): launches {counts}")
+                form_launches["B4"] += counts["B4"]
+                form_launches["B3"] += counts["B3"]
+                for k, (task, res) in enumerate(pairs):
+                    _, h, w = sources[k][0].shape
+                    check_dims(res, h, w)
+                    if "w" in flags:
+                        got = artifact_px(res, "watermark")
+                        check_mark(got, twins[k], h, w, f"plan {flags} ({mode}) #{k}")
+                        if splice_on and not np.array_equal(got[:h // 2], src_px[k][:h // 2]):
+                            fail(f"plan {flags} #{k}: spliced top half differs")
+                log(f"[9 form] plan {flags:>3} ({mode}): {len(pairs)} tasks COMPLETED "
+                    f"in {wall:.3f} s (host clock); launches {counts}; ms: {stages}")
+            if not splice_on:
+                for flags in ("t", "r", "w", "trw"):
+                    lsb, step = plain_group_check(form[flags])
+                    form_lsb, form_step = max(form_lsb, lsb), max(form_step, step)
+                if form_lsb > LSB_LIMIT or form_step > STEP_LIMIT:
+                    fail(f"form group outputs vs plain: {form_lsb} LSB, {form_step} steps")
+                log(f"[9 form] group outputs of plans t, r, w, trw (splice off) vs "
+                    f"plain versions: resamples {form_lsb} LSB, B3 {form_step} steps")
+        os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "1"
+        # non-JPEG sources never splice: device blend + B3 for the watermark
+        for fmt, h, w in (("PNG", 480, 640), ("GIF", 300, 400)):
+            img = photo(h, w, 20 + h).transpose(1, 2, 0)
+            bio = io.BytesIO()
+            PILImage.fromarray(img).save(bio, format=fmt)
+            blob = bio.getvalue()
+            [(_, twin)], _, _ = worker_steps([blob], [mark(" ")], fmt.lower())
+            [(_, res)], counts, _ = worker_steps([blob], form["trw"], fmt.lower())
+            # a PNG upload's watermark stays PNG; a GIF's is re-encoded as
+            # JPEG (watermark.go), through B3
+            if counts["B2"] == 0 or (counts["B3"] > 0) != (fmt == "GIF"):
+                fail(f"{fmt} source: launches {counts}")
+            check_dims(res, h, w)
+            check_mark(artifact_px(res, "watermark"), artifact_px(twin, "watermark"),
+                       h, w, fmt)
+            exts = {op: p.rsplit(".", 1)[1] for op, p in res.result.processed_paths.items()}
+            want_ext = fmt.lower()
+            if exts != {"thumbnail": want_ext, "resize": want_ext,
+                        "watermark": "png" if fmt == "PNG" else "jpeg"}:
+                fail(f"{fmt} source: artifact formats {exts}")
+            log(f"[9 form] {fmt} {w}x{h} source, every flag: COMPLETED, formats "
+                f"{exts}, launches {counts}")
+    finally:
+        os.environ.pop("IMAGEPROCESSOR_JPEG_SPLICE", None)
+        engine.close()
+        meta.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- 10. timing at 8 x 3072 x 4096
+    b3_ms = time_ms(lambda: jpeg_kernels.encode_420(src, big_vh, qt85))
+    b3_plain = time_ms(lambda: encode_420_plain(src, big_vh, qt85), iters=3)
+    b4_ms = time_ms(lambda: pr.planar_resample(src, taps_r))
+    b4_plain = time_ms(lambda: fr.resample_plain(src, taps_r), iters=5)
+    tile = wm.quantize_tile(wm.rasterize_text("© ImageProcessor", 36.0))
+    color, alpha = (255, 255, 255), 127 / 255.0
+
+    def blend(canvas):
+        return wm.watermark_planar_(canvas, src_hw, tile, color, alpha, "bottom-right")
+
+    canvas = src.clone()
+    blend_ms = time_ms(lambda: blend(canvas))
+
+    def splice_off_step():
+        rgb = jpeg_kernels.decode_coefs(*big, 2, 2, (H, W))
+        fr.fused_resample(rgb, taps_t, taps_r)
+        jpeg_kernels.encode_420(blend(rgb), big_vh, qt85)
+
+    off_ms = time_ms(splice_off_step)
+    log(f"[10 timing] {card}: B3 {b3_ms:.4f} ms (plain {b3_plain:.4f} ms), "
+        f"B4 resize to 1024x768 {b4_ms:.4f} ms (plain {b4_plain:.4f} ms), "
+        f"blend {blend_ms:.4f} ms per 8x3072x4096 batch; splice-off step "
+        f"B1 -> B2 -> blend -> B3 {off_ms:.4f} ms = {B * 1000.0 / off_ms:.1f} "
+        f"images/s (CUDA events)")
+
     summary = {"kernels": [
         {"name": "jpeg_decode_b1", "route": "cuda",
          "source": "imageprocessor_tpu_torch/csrc/jpeg_decode.cu",
@@ -453,6 +847,16 @@ def main() -> int:
          "replaces": "imageprocessor_tpu/ops/pallas_fused.py:591",
          "launches": launches["B2"], "max_abs_err": max(b2_err, main_err),
          "ms": b2_ms, "plain_ms": b2_plain},
+        {"name": "jpeg_encode_b3", "route": "cuda",
+         "source": "imageprocessor_tpu_torch/csrc/jpeg_encode.cu",
+         "replaces": "imageprocessor_tpu/ops/pallas_jpeg.py:932",
+         "launches": form_launches["B3"], "max_abs_err": max(b3_err, form_step),
+         "ms": b3_ms, "plain_ms": b3_plain},
+        {"name": "planar_resample_b4", "route": "cuda",
+         "source": "imageprocessor_tpu_torch/csrc/planar_resample.cu",
+         "replaces": "imageprocessor_tpu/ops/pallas_resample.py:341",
+         "launches": form_launches["B4"], "max_abs_err": max(b4_err, form_lsb),
+         "ms": b4_ms, "plain_ms": b4_plain},
     ]}
     print(json.dumps(summary))
     print(card)

@@ -116,7 +116,9 @@ def resample_plain(src: torch.Tensor, taps: Taps) -> torch.Tensor:
     return quantize_go_xdraw(torch.stack(outs))
 
 
-def _check(src: torch.Tensor, taps: Taps | None) -> None:
+def check_operands(src: torch.Tensor, taps: Taps | None) -> None:
+    """Raise ValueError unless ``src`` is (B, 3, H, W) u8 and ``taps`` (if
+    given) are contiguous int32/float32 (B, n) tables on its device."""
     if src.dtype != torch.uint8 or src.dim() != 4 or src.shape[1] != 3:
         raise ValueError(f"expected (B, 3, H, W) uint8, got {tuple(src.shape)} "
                          f"{src.dtype}")
@@ -146,8 +148,8 @@ def fused_resample(src: torch.Tensor, taps_a: Taps | None,
     A CPU source takes the plain version; a CUDA source launches kernel
     B2 (or raises)."""
     global launches
-    _check(src, taps_a)
-    _check(src, taps_b)
+    check_operands(src, taps_a)
+    check_operands(src, taps_b)
     if src.device.type == "cpu":
         return tuple(None if t is None else resample_plain(src, t)
                      for t in (taps_a, taps_b))

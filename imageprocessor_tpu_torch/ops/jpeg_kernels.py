@@ -1,10 +1,12 @@
-"""Wrapper of kernel B1 (csrc/jpeg_decode.cu) — the counterpart of
-imageprocessor_tpu/ops/pallas_jpeg.py's ``decode_420`` entry point.
+"""Wrappers of kernels B1 (csrc/jpeg_decode.cu) and B3
+(csrc/jpeg_encode.cu) — the counterparts of
+imageprocessor_tpu/ops/pallas_jpeg.py's ``decode_420`` and ``encode_420``
+entry points.
 
-``decode_coefs`` validates its operands, then takes the plain PyTorch
-version (ops/jpeg_decode.py) for tensors on the CPU and launches the CUDA
-kernel for tensors on a card. There is no fallback from the kernel: a
-CUDA tensor launches it or raises.
+Each wrapper validates its operands, then takes the plain PyTorch version
+(ops/jpeg_decode.py, ops/jpeg_encode.py) for tensors on the CPU and
+launches the CUDA kernel for tensors on a card. There is no fallback from
+a kernel: a CUDA tensor launches it or raises.
 """
 
 from __future__ import annotations
@@ -13,9 +15,12 @@ import torch
 
 from imageprocessor_tpu_torch import kernels
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
+from imageprocessor_tpu_torch.ops.jpeg_encode import encode_420_plain
 
-# Launches of kernel B1 in this process (reset by callers that count a run).
+# Launches of kernels B1 and B3 in this process (reset by callers that
+# count a run).
 launches = 0
+encode_launches = 0
 
 
 def _check(yc, cbc, crc, qt, cv, fh: int, fw: int,
@@ -65,3 +70,47 @@ def decode_coefs(yc: torch.Tensor, cbc: torch.Tensor, crc: torch.Tensor,
     kernels.check(rc, "ip_decode_coefs")
     launches += 1
     return out
+
+
+def _check_encode(rgb, valid_hw, qt) -> None:
+    if rgb.dtype != torch.uint8 or rgb.dim() != 4 or rgb.shape[1] != 3:
+        raise ValueError(f"rgb must be (B, 3, H, W) uint8, got "
+                         f"{tuple(rgb.shape)} {rgb.dtype}")
+    b, _, h, w = rgb.shape
+    if h % 16 or w % 16 or h == 0 or w == 0:
+        raise ValueError(f"canvas {h}x{w} is not a whole number of 16x16 MCUs")
+    if valid_hw.dtype != torch.int32 or tuple(valid_hw.shape) != (b, 2):
+        raise ValueError("valid_hw must be (B, 2) int32")
+    if qt.dtype != torch.float32 or tuple(qt.shape) != (2, 8, 8):
+        raise ValueError("qt must be (2, 8, 8) float32")
+    if any(t.device != rgb.device for t in (valid_hw, qt)):
+        raise ValueError("all operands must share a device")
+
+
+def encode_420(rgb: torch.Tensor, valid_hw: torch.Tensor, qt: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, 3, H, W) u8 planar RGB (H, W multiples of 16; a view whose
+    columns are contiguous is read in place), (B, 2) int32 valid dims and
+    (2, 8, 8) float32 luma/chroma tables -> int16 4:2:0 coefficient
+    canvases Y (B, H, W), Cb and Cr (B, H/2, W/2). Blocks past ceil16 of
+    an image's valid extent are unspecified."""
+    global encode_launches
+    _check_encode(rgb, valid_hw, qt)
+    if rgb.device.type == "cpu":
+        return encode_420_plain(rgb, valid_hw, qt)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"unsupported device {rgb.device}")
+    if rgb.stride(3) != 1:
+        rgb = rgb.contiguous()
+    valid_hw, qt = valid_hw.contiguous(), qt.contiguous()
+    b, _, h, w = rgb.shape
+    yc = torch.empty((b, h, w), dtype=torch.int16, device=rgb.device)
+    cbc = torch.empty((b, h // 2, w // 2), dtype=torch.int16, device=rgb.device)
+    crc = torch.empty_like(cbc)
+    rc = kernels.library().ip_encode_420(
+        rgb.data_ptr(), rgb.stride(0), rgb.stride(1), rgb.stride(2),
+        valid_hw.data_ptr(), qt.data_ptr(), yc.data_ptr(), cbc.data_ptr(),
+        crc.data_ptr(), b, h, w, kernels.stream_ptr(rgb.device))
+    kernels.check(rc, "ip_encode_420")
+    encode_launches += 1
+    return yc, cbc, crc

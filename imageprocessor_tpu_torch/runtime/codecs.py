@@ -2,8 +2,10 @@
 # package. tests/test_torch_shared_copies.py holds it equal to the
 # original until ROADMAP A.17 leaves one module where there are two.
 # Unlike the original it has no libjpeg shim (runtime/nativecodec.py): a
-# host without libjpeg's headers cannot build it, so decode and encode go
-# to OpenCV, then PIL, and GIF outputs use PIL's adaptive palette.
+# host without libjpeg's headers cannot build it, so JPEG, PNG and the
+# rest decode and encode through OpenCV, then PIL. GIF outputs go through
+# the same Plan9 quantizer as the original's (native/gifquant.cpp, built
+# without libjpeg by runtime/hostcodec.py).
 """Host image codecs and format negotiation.
 
 Decode/encode never run on the TPU — entropy coding is branchy scalar work.
@@ -62,6 +64,10 @@ try:  # OpenCV is the fast path; PIL covers the rest.
     _HAS_CV2 = True
 except Exception:  # pragma: no cover
     _HAS_CV2 = False
+
+# The host library of the port (runtime/hostcodec.py): Go's Plan9 GIF
+# quantizer, built without libjpeg.
+from imageprocessor_tpu_torch.runtime import hostcodec as _native
 
 
 # --- content sniffing (http.DetectContentType subset for images) -----------
@@ -271,6 +277,20 @@ def encode_image(arr: np.ndarray, fmt: str, quality: int = 85) -> bytes:
 
     bio = io.BytesIO()
     if fmt == "gif":
+        # Go gif.Encode(nil) = fixed Plan9 palette + Floyd-Steinberg
+        # (image/gif/writer.go -> draw.FloydSteinberg). The native
+        # quantizer reproduces that arithmetic bit-for-bit, so decoded
+        # pixels match the reference exactly; the LZW layer is lossless
+        # and may differ byte-wise. IMAGEPROCESSOR_GIF_QUANTIZER=
+        # adaptive restores the round-3/4 behavior (PIL median-cut
+        # ADAPTIVE palette — usually higher PSNR but not Go-parity).
+        mode = os.environ.get("IMAGEPROCESSOR_GIF_QUANTIZER", "go").lower()
+        if mode != "adaptive":
+            idx, pal = _native.gif_quantize_plan9(arr)
+            pim = Image.fromarray(idx, mode="P")
+            pim.putpalette(pal.reshape(-1).tolist())
+            pim.save(bio, format="GIF")
+            return bio.getvalue()
         Image.fromarray(arr).convert(
             "P", palette=Image.ADAPTIVE).save(bio, format="GIF")
         return bio.getvalue()

@@ -11,22 +11,32 @@ The path of one task:
 1. host: a complete JPEG is entropy-scanned into int16 coefficient planes
    (runtime/hostcodec.py) when it has 3 components in a supported
    sampling (4:2:0, 4:2:2, 4:4:0, 4:4:4); anything else is decoded to
-   HWC pixels by runtime/codecs.decode_image;
+   HWC pixels by runtime/codecs.decode_image. A plan with a watermark
+   whose rendition is a JPEG scans a JPEG for the splice instead
+   (runtime/splice.py, when IMAGEPROCESSOR_JPEG_SPLICE is not 0): a
+   watermark-only plan then needs no pixels at all (layout "splice");
 2. items are grouped by (bucket, plan, layout) and padded to a power-of-
    two batch (runtime/batcher, a copy of the reference's);
 3. device: kernel B1 decodes the coefficient canvases into the planar
-   bucket (HWC groups are uploaded and permuted instead), kernel B2
-   writes the resize and the thumbnail in one launch, and each output is
+   bucket (HWC groups are uploaded and permuted instead); the plan's
+   resamples run through kernel B2 (the first thumbnail + resize pair)
+   and kernel B4 (every other one), and a watermark the splice does not
+   serve is blended into the bucket in place. Each resample output is
    cropped on the device to the group's largest valid extent (rounded up
-   to /64) before it is copied to the host;
-4. host: each image's outputs are encoded by runtime/codecs.encode_image
-   and saved under the reference's deterministic paths.
+   to /64) before it is copied to the host; a watermark bucket whose
+   renditions are all JPEGs goes through kernel B3 (the encode front
+   half) at the group's largest valid extent rounded up to /16, and its
+   int16 coefficient canvases are copied instead;
+4. host: a spliced watermark is emitted by region transcode, B3's
+   coefficients by the entropy emitter (runtime/hostcodec.py), every
+   other output is encoded by runtime/codecs.encode_image; all are saved
+   under the reference's deterministic paths.
 
-This slice serves plans made only of thumbnail and resize ops — the
-service's default upload. Any other op fails the task PERMANENTLY with
-UnsupportedOperationError. Failures are classified like the reference:
-PERMANENT (bad input; acked) or TRANSIENT (storage, OS, device; nacked
-for redelivery).
+This slice serves plans made of thumbnail, resize and watermark ops —
+every plan the upload form produces. Any other op fails the task
+PERMANENTLY with UnsupportedOperationError. Failures are classified like
+the reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
+device; nacked for redelivery).
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ from imageprocessor_tpu_torch.domain import (
 from imageprocessor_tpu_torch.errors import StorageError, UnsupportedOperationError
 from imageprocessor_tpu_torch.kernels import KernelError
 from imageprocessor_tpu_torch.models.pipeline import (
-    RESAMPLE_OPS,
+    SERVED_OPS,
     plan_output_specs,
     step_chw,
 )
@@ -61,8 +71,10 @@ from imageprocessor_tpu_torch.models.plan import (
     normalize_operations,
 )
 from imageprocessor_tpu_torch.ops.coords import keep_aspect_dims, thumbnail_dims
-from imageprocessor_tpu_torch.ops.jpeg_kernels import decode_coefs
-from imageprocessor_tpu_torch.runtime import hostcodec
+from imageprocessor_tpu_torch.ops.jpeg_encode import quality_qtables
+from imageprocessor_tpu_torch.ops.jpeg_kernels import decode_coefs, encode_420
+from imageprocessor_tpu_torch.ops.watermark import watermark_image
+from imageprocessor_tpu_torch.runtime import hostcodec, splice
 from imageprocessor_tpu_torch.runtime.batcher import (
     MAX_BATCH,
     BatchItem,
@@ -112,7 +124,7 @@ class EngineResult:
 def check_supported(plan: OperationPlan) -> None:
     """Raise UnsupportedOperationError for ops outside this slice."""
     for op in plan.ops:
-        if op.type not in RESAMPLE_OPS:
+        if op.type not in SERVED_OPS:
             raise UnsupportedOperationError(
                 f"operation {op.type.value} is not served by the torch "
                 "engine yet")
@@ -158,34 +170,125 @@ class TorchProcessingEngine:
     def _encode_and_save(self, task: ProcessingTask, op: NormalizedOp,
                          arr: np.ndarray, fmt: str) -> Artifact:
         """arr: planar (3, h, w) u8 valid output."""
-        out_fmt = negotiate_format(fmt)
+        out_fmt = negotiate_format(fmt,
+                                   watermark=op.type is OperationType.WATERMARK)
         data = encode_image(np.ascontiguousarray(arr.transpose(1, 2, 0)),
                             out_fmt, quality=self.jpeg_quality)
+        return self._save_artifact(task, op, data, out_fmt)
+
+    def _save_artifact(self, task: ProcessingTask, op: NormalizedOp,
+                       data: bytes, out_fmt: str) -> Artifact:
         path = generate_path(task.image_id, op, out_fmt)
         mime = mime_from_path(path)
         self._save(path, data, mime)
         return Artifact(operation=op.type.value, path=path, size=len(data),
                         mime_type=mime, format=out_fmt)
 
+    def _emit_and_save(self, task: ProcessingTask, op: NormalizedOp,
+                       coef, i: int, h: int, w: int) -> Artifact:
+        """Save one device-encoded output: slice the image's MCU grid out
+        of the group's coefficient canvases (strided views, no copy) and
+        run the host entropy emitter."""
+        _tag, yc, cbc, crc, qt = coef
+        gh, gw = -(-h // 16) * 16, -(-w // 16) * 16
+        data = hostcodec.emit_jpeg_from_coefficients(
+            [yc[i, :gh, :gw], cbc[i, :gh // 2, :gw // 2],
+             crc[i, :gh // 2, :gw // 2]], qt, w, h, (2, 2))
+        return self._save_artifact(task, op, data, "jpeg")
+
+    def _splice_and_save(self, task: ProcessingTask, op: NormalizedOp,
+                         ctx) -> Artifact:
+        """Watermark rendition by JPEG splice transcode: edit only the MCU
+        band the text touches and copy every other MCU's bits verbatim
+        (runtime/splice.py). Fallback, as the reference: decode the
+        scanned coefficients on the host, blend if the band edit never
+        landed, and re-encode at the engine quality."""
+        t0 = time.monotonic()
+        try:
+            data = splice.watermark_splice(ctx, op)
+        except hostcodec.HostCodecError:
+            # watermark_splice restores the context in a finally, so
+            # decode_rgb sees pristine source coefficients here
+            arr = splice.decode_rgb(ctx)
+            if not ctx.edited:
+                arr = watermark_image(arr, op)
+            return self._encode_and_save(task, op, arr.transpose(2, 0, 1),
+                                         "jpeg")
+        METRICS.observe("engine_splice_emit_ms",
+                        (time.monotonic() - t0) * 1000.0)
+        METRICS.inc("engine_splice_images", 1)
+        return self._save_artifact(task, op, data, "jpeg")
+
     # ---------------------------------------------------------------- decode
 
     def decode_for_plan_ex(self, data: bytes, plan: OperationPlan | None,
                            task_format: str | None = None):
         """Decode one blob for the device path: (image, detected_format,
-        layout, valid_hw, None). Complete JPEGs with 3 components in a
-        supported sampling become coefficient planes (layout "coef:FhFw");
-        everything else decodes to (h, w, 3) pixels (layout "hwc"). The
-        fifth element (the reference's splice context) is always None."""
-        del task_format  # no splice path in this slice
+        layout, valid_hw, splice_ctx).
+
+        Complete JPEGs with 3 components in a supported sampling become
+        coefficient planes (layout "coef:FhFw"); everything else decodes to
+        (h, w, 3) pixels (layout "hwc"). When the plan has a watermark
+        whose rendition negotiates to JPEG and the splice is enabled, the
+        JPEG is scanned for the splice (runtime/splice.py) and its context
+        rides along as the fifth element; a watermark-only plan then
+        returns the "splice" placeholder (no pixels: every rendition is
+        emitted from the scanned coefficients at finish time).
+        task_format=None keeps the splice scan (the source is a JPEG, so
+        the detected format negotiates to JPEG)."""
         if plan is not None:
             check_supported(plan)
-        if (detect_content_type(data[:512]) == "image/jpeg"
-                and jpeg_stream_complete(data)):
+        is_jpeg = (detect_content_type(data[:512]) == "image/jpeg"
+                   and jpeg_stream_complete(data))
+        wm_jpeg = (plan is not None
+                   and any(op.type is OperationType.WATERMARK for op in plan.ops)
+                   and negotiate_format(task_format or "jpeg",
+                                        watermark=True) == "jpeg")
+        # no coefficient-domain transform op is served yet, so a plan is
+        # served from the coefficients alone exactly when every op is a
+        # watermark
+        coef_only = wm_jpeg and all(op.type is OperationType.WATERMARK
+                                    for op in plan.ops)
+        sctx = None
+        scanned = None   # (planes, qtabs, (w, h), sampling)
+        if is_jpeg and wm_jpeg and splice.enabled():
             try:
-                planes, qt, (w, h), samp = hostcodec.scan_jpeg_coefficients(data)
+                c = hostcodec.scan_jpeg_for_transcode(data)
+                scanned = (c.planes, c.qtabs, c.size, c.sampling)
+                if splice.supports(c):
+                    sctx = c
+                elif len(c.planes) == 1:
+                    # grayscale: Y kept bit-exact, neutral chroma synthesized
+                    sctx = splice.promote_grayscale(
+                        c.planes, c.qtabs, c.size, c.sampling)
             except hostcodec.HostCodecError:
-                planes = None   # exotic stream: pixel decode below
-            if planes is not None and len(planes) == 3:
+                # The transcode scan refuses progressive AND truncated or
+                # exotic streams; only a progressive header takes the
+                # coefficient-domain path (band edit + baseline
+                # re-symbolization), the rest fall to the pixel decoders.
+                try:
+                    if hostcodec.is_progressive(data):
+                        scanned = hostcodec.scan_jpeg_coefficients(data)
+                        planes, qt, size, samp = scanned
+                        c = (splice.promote_grayscale(planes, qt, size, samp)
+                             if len(planes) == 1
+                             else splice.coef_context(planes, qt, size, samp))
+                        if splice.coef_reencodable(c):
+                            sctx = c
+                except hostcodec.HostCodecError:
+                    pass   # unparseable/truncated: pixel decode below
+        if coef_only and sctx is not None:
+            w, h = sctx.size
+            return (np.empty((0, 0, 3), dtype=np.uint8), "jpeg", "splice",
+                    (h, w), sctx)
+        if is_jpeg:
+            try:
+                if scanned is None:
+                    scanned = hostcodec.scan_jpeg_coefficients(data)
+                planes, qt, (w, h), samp = scanned
+            except hostcodec.HostCodecError:
+                planes = ()   # exotic stream: pixel decode below
+            if len(planes) == 3:
                 (hy, vy), (hc, vc), (hr, vr) = (tuple(s) for s in samp)
                 fh, fw = vy, hy
                 if (hc, vc) == (hr, vr) == (1, 1) and fh in (1, 2) \
@@ -195,10 +298,11 @@ class TorchProcessingEngine:
                             and planes[1].shape == planes[2].shape
                             and planes[1].shape[0] * fh == planes[0].shape[0]
                             and planes[1].shape[1] * fw == planes[0].shape[1]):
-                        return ((planes[0], planes[1], planes[2], qt), "jpeg",
-                                coef_layout(fh, fw), (h, w), None)
+                        return ((planes[0], planes[1], planes[2],
+                                 np.asarray(qt, dtype=np.float32)), "jpeg",
+                                coef_layout(fh, fw), (h, w), sctx)
         arr, detected = decode_image(data)
-        return arr, detected, "hwc", None, None
+        return arr, detected, "hwc", None, sctx
 
     # ----------------------------------------------------------- batched path
 
@@ -220,8 +324,11 @@ class TorchProcessingEngine:
                 results[i] = self._failed(task, f"Operation failed: {exc}")
 
         def _dec(i):
+            fmt = tasks_with_data[i][0].format
             try:
-                return self.decode_for_plan_ex(tasks_with_data[i][1], plans[i])
+                return self.decode_for_plan_ex(
+                    tasks_with_data[i][1], plans[i],
+                    task_format=fmt if isinstance(fmt, str) else None)
             except Exception as exc:  # noqa: BLE001 — isolated per image
                 return exc
 
@@ -237,13 +344,14 @@ class TorchProcessingEngine:
             if isinstance(dec, Exception):
                 results[i] = self._failed(task, f"Failed to decode image: {dec}")
                 continue
-            arr, detected, layout, valid_hw, _ = dec
+            arr, detected, layout, valid_hw, sctx = dec
             try:
                 fmt = (task.format or detected or "jpeg").lower()
                 items.append(BatchItem(item_id=str(i), image=arr,
                                        plan_key=plans[i].group_key(),
                                        payload=(i, task, fmt, plans[i]),
-                                       layout=layout, valid_hw=valid_hw))
+                                       layout=layout, valid_hw=valid_hw,
+                                       splice=sctx))
             except Exception as exc:  # e.g. a non-string Format
                 results[i] = self._failed(task, f"Operation failed: {exc}")
 
@@ -279,11 +387,29 @@ class TorchProcessingEngine:
 
     def device_group(self, group):
         """Stage 2: one packed group through the device. Returns (plan,
-        per-op host outputs (B, 3, h, w) u8, out_hws, layout)."""
+        per-op host outputs, out_hws, layout). An output is a (B, 3, h, w)
+        u8 array, ("coef420", yc, cbc, crc, qt) for B3's canvases, or
+        ("splice", op) for a watermark the finish stage splices."""
         plan: OperationPlan = group.items[0].payload[3]
         n_real = len(group.items)
-        b = quantize_batch(n_real)
 
+        # Watermark renditions every item splices (runtime/splice.py) leave
+        # the device plan: no blend, no encode, no copy. A group where
+        # every op splices (the "splice" layout) has nothing to run.
+        splice_skip: set[int] = set()
+        if group.layout == "splice":
+            splice_skip = set(range(len(plan.ops)))
+        elif all(it.splice is not None
+                 and negotiate_format(it.payload[2], watermark=True) == "jpeg"
+                 for it in group.items):
+            splice_skip = {oi for oi, op in enumerate(plan.ops)
+                           if op.type is OperationType.WATERMARK}
+        if splice_skip and len(splice_skip) == len(plan.ops):
+            METRICS.observe("engine_device_ms", 0.0)
+            METRICS.inc("engine_device_images", n_real)
+            return plan, [("splice", op) for op in plan.ops], {}, group.layout
+
+        b = quantize_batch(n_real)
         # per-op, per-image valid output dims (Go-exact host arithmetic);
         # pad rows mirror the last real image
         out_hws: dict[int, np.ndarray] = {}
@@ -311,45 +437,99 @@ class TorchProcessingEngine:
                 hw[n_real:] = hw[n_real - 1]
                 out_hws[oi] = hw
                 aspect_long[oi] = long_side
-        specs = plan_output_specs(plan, aspect_long)
+        # plan op index -> its index in the device plan (spliced ops left out)
+        run = {oi: k for k, oi in enumerate(
+            oi for oi in range(len(plan.ops)) if oi not in splice_skip)}
+        run_plan = OperationPlan(ops=tuple(plan.ops[oi] for oi in run))
+        specs = plan_output_specs(run_plan, {run[oi]: v
+                                             for oi, v in aspect_long.items()
+                                             if oi in run})
 
         t_dev = time.monotonic()
         imgs, src_hw = self._upload(group, b)
-        outs = step_chw(imgs, src_hw, out_hws, specs)
+        outs = step_chw(imgs, src_hw, {run[oi]: v for oi, v in out_hws.items()
+                                       if oi in run}, specs)
 
         # crop on the device to the group's largest valid output (rounded
         # up to /64) before the copy to the host
         def _q64(v: int, cap: int) -> int:
             return min(-(-v // 64) * 64, cap)
 
+        max_h = max(it.hw[0] for it in group.items)
+        max_w = max(it.hw[1] for it in group.items)
         outs_np = []
-        for oi, o in enumerate(outs):
+        for oi, op in enumerate(plan.ops):
+            if oi in splice_skip:   # spliced on the host at finish time
+                outs_np.append(("splice", op))
+                continue
+            o = outs[run[oi]]
             if oi in out_hws:
-                mh = _q64(int(out_hws[oi][:n_real, 0].max()), o.shape[2])
-                mw = _q64(int(out_hws[oi][:n_real, 1].max()), o.shape[3])
-                o = o[:, :, :mh, :mw]
+                o = o[:, :, :_q64(int(out_hws[oi][:n_real, 0].max()), o.shape[2]),
+                      :_q64(int(out_hws[oi][:n_real, 1].max()), o.shape[3])]
+            elif op.type is OperationType.WATERMARK:
+                if all(negotiate_format(it.payload[2], watermark=True) == "jpeg"
+                       for it in group.items):
+                    outs_np.append(self._encode_coefs(o, group, max_h, max_w))
+                    continue
+                o = o[:, :, :_q64(max_h, o.shape[2]), :_q64(max_w, o.shape[3])]
             outs_np.append(o.cpu().numpy())
         METRICS.observe("engine_device_ms", (time.monotonic() - t_dev) * 1000.0)
         METRICS.inc("engine_device_images", n_real)
         return plan, outs_np, out_hws, "chw"
 
+    def _encode_coefs(self, canvas: torch.Tensor, group, max_h: int,
+                      max_w: int):
+        """A full-bucket output every item wants as a JPEG: kernel B3 over
+        the group's largest valid extent rounded up to /16 (edges past each
+        image's valid dims replicate; a bucket narrower than that extent is
+        padded, the pad never read), then the int16 canvases to the host.
+        Pad rows get valid (1, 1)."""
+        mh, mw = -(-max_h // 16) * 16, -(-max_w // 16) * 16
+        rgb = canvas[:, :, :mh, :mw]
+        if tuple(rgb.shape[2:]) != (mh, mw):
+            rgb = torch.nn.functional.pad(
+                rgb, (0, mw - rgb.shape[3], 0, mh - rgb.shape[2]))
+        vh = np.ones((canvas.shape[0], 2), dtype=np.int32)
+        vh[:len(group.items)] = [it.hw for it in group.items]
+        qt = quality_qtables(self.jpeg_quality)
+        yc, cbc, crc = encode_420(
+            rgb, torch.from_numpy(vh).to(self.device),
+            torch.from_numpy(qt.astype(np.float32)).to(self.device))
+        return ("coef420", yc.cpu().numpy(), cbc.cpu().numpy(),
+                crc.cpu().numpy(), qt)
+
     def finish_item(self, group, i: int, plan, outs_np, out_hws,
                     layout: str = "chw") -> EngineResult:
-        """Stage 3 for one image: crop the valid regions, encode, save.
-        Fail-fast across the image's op list (reference semantics)."""
-        del layout  # outputs are always planar here
+        """Stage 3 for one image: crop the valid regions, then splice, emit
+        or encode each output, and save. Fail-fast across the image's op
+        list (reference semantics)."""
+        del layout  # pixel outputs are always planar here
         it = group.items[i]
         _task_idx, task, fmt, _plan = it.payload
         out = EngineResult(result=ProcessingResult(
             id=task.id, image_id=task.image_id, status=ImageStatus.COMPLETED))
+        h, w = it.hw
         for oi, op in enumerate(plan.ops):
-            if oi in out_hws:
-                oh, ow = out_hws[oi][i]
-                arr = outs_np[oi][i][:, :oh, :ow]
-            else:   # crop thumbnail: the (size, size) canvas is all valid
-                arr = outs_np[oi][i]
+            o = outs_np[oi]
             try:
-                artifact = self._encode_and_save(task, op, arr, fmt)
+                if isinstance(o, tuple) and o[0] == "splice":
+                    artifact = self._splice_and_save(task, op, it.splice)
+                elif (op.type is OperationType.WATERMARK
+                        and it.splice is not None
+                        and negotiate_format(fmt, watermark=True) == "jpeg"):
+                    # a mixed group computed the blend for batchmates; this
+                    # item still splices (with its own fallback)
+                    artifact = self._splice_and_save(task, op, it.splice)
+                elif isinstance(o, tuple):
+                    artifact = self._emit_and_save(task, op, o, i, h, w)
+                elif oi in out_hws:
+                    oh, ow = out_hws[oi][i]
+                    artifact = self._encode_and_save(task, op, o[i][:, :oh, :ow], fmt)
+                elif op.type is OperationType.THUMBNAIL:
+                    # crop thumbnail: the (size, size) canvas is all valid
+                    artifact = self._encode_and_save(task, op, o[i], fmt)
+                else:   # full-bucket canvas: crop to the valid extent
+                    artifact = self._encode_and_save(task, op, o[i][:, :h, :w], fmt)
             except Exception as exc:
                 out.result.status = ImageStatus.FAILED
                 out.result.error = f"Operation {op.type.value} failed: {exc}"

@@ -10,7 +10,19 @@ default is not a port target). Contracts:
   both sides and differ only in summation order at rounding boundaries);
 * decoded artifacts: PSNR > 45 dB — the port encodes through OpenCV
   (runtime/codecs.py), the reference through its own libjpeg shim, so
-  the bytes may differ while the pixels agree closely.
+  the bytes may differ while the pixels agree closely; with the splice
+  off, a watermark is encoded by kernel B3's plain version (exact fp32
+  FDCT) where the reference's rounds its basis to bf16, both emitted by
+  the same native code;
+* spliced watermark artifacts: byte-identical — the same native splice
+  code (runtime/hostcodec.py builds it without libjpeg), the same copied
+  runtime/splice.py and the same font;
+* GIF artifacts: equal decoded pixels — both quantize with the same
+  native Plan9 code.
+
+The seven plans the upload form produces (thumbnail, resize and
+watermark flags) run with the splice on and off
+(IMAGEPROCESSOR_JPEG_SPLICE, read per call).
 
 Each engine gets tasks of its own package's domain types, made from the
 same task JSON (the broker's wire format). The last test runs the port
@@ -62,6 +74,13 @@ DOWNSCALE = [OperationParams(OperationType.THUMBNAIL, {"size": 64, "crop_to_fit"
              OperationParams(OperationType.RESIZE,
                              {"width": 128, "height": 96, "keep_aspect": True})]
 PLANS = {"default": DEFAULT, "downscale": DOWNSCALE}
+WATERMARK = OperationParams(OperationType.WATERMARK, {
+    "text": "© ImageProcessor", "opacity": 0.5, "position": "bottom-right"})
+# the upload form's flags -> its plans (service/handlers.py
+# parse_operations_from_form; no flag at all is the DEFAULT pair)
+FORM_PLANS = {flags: [op for flag, op in zip("trw", (*DEFAULT, WATERMARK))
+                      if flag in flags]
+              for flags in ("t", "r", "w", "tr", "tw", "rw", "trw")}
 
 
 def photo(h, w):
@@ -199,16 +218,17 @@ def test_png_source_takes_pixel_path(engines):
 
 def test_unsupported_and_undecodable_fail_permanently(engines):
     _, (port, _) = engines
-    wm = make_task([OperationParams(OperationType.WATERMARK, {"text": "x"})])
+    crop = make_task([OperationParams(OperationType.CROP,
+                                      {"x": 0, "y": 0, "width": 8, "height": 8})])
     bad = make_task(DEFAULT)
     ok = make_task(DEFAULT)
-    res = port.process_tasks([(to_port(wm), BLOBS[0]),
+    res = port.process_tasks([(to_port(crop), BLOBS[0]),
                               (to_port(bad), BLOBS[0][:400]),
                               (to_port(ok), BLOBS[0])])
     status = port_domain.ImageStatus
     assert res[0].result.status is status.FAILED
     assert res[0].error_kind == PERMANENT
-    assert "watermark" in res[0].result.error
+    assert "crop" in res[0].result.error
     assert res[1].result.status is status.FAILED
     assert res[1].error_kind == PERMANENT
     assert res[2].result.status is status.COMPLETED
@@ -312,3 +332,131 @@ def test_service_with_injected_port_engine(tmp_path, monkeypatch):
         h.stop()
         h._worker_thread.join(timeout=10)
         h.worker.close()
+
+
+def _compare_artifacts(engines, a, b, exact_ops=()):
+    """Paths equal; ops in exact_ops byte-identical, the rest PSNR > 45."""
+    (ref, s_ref), (port, s_port) = engines
+    assert a.result.status is ImageStatus.COMPLETED, a.result.error
+    assert b.result.status is port_domain.ImageStatus.COMPLETED, b.result.error
+    assert a.result.processed_paths == b.result.processed_paths
+    for op, path in a.result.processed_paths.items():
+        x, y = s_ref.get_object(path), s_port.get_object(path)
+        if op in exact_ops:
+            assert x == y, path
+        else:
+            u, _ = decode_image(x)
+            v, _ = decode_image(y)
+            assert u.shape == v.shape
+            assert psnr(u, v) > 45.0, path
+
+
+@pytest.mark.parametrize("splice_on", [True, False], ids=["splice", "nosplice"])
+@pytest.mark.parametrize("flags", sorted(FORM_PLANS))
+def test_form_plans_match_reference(engines, monkeypatch, flags, splice_on):
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "1" if splice_on else "0")
+    (ref, _), (port, _) = engines
+    tasks = [make_task(FORM_PLANS[flags]) for _ in BLOBS]
+    r_ref = ref.process_tasks(list(zip(tasks, BLOBS)))
+    r_port = port.process_tasks([(to_port(t), b) for t, b in zip(tasks, BLOBS)])
+    for a, b in zip(r_ref, r_port):
+        _compare_artifacts(engines, a, b,
+                           exact_ops=("watermark",) if splice_on else ())
+
+
+def _wm_task(fmt="jpeg", **params):
+    return make_task([OperationParams(OperationType.WATERMARK, {
+        "text": "hi mark", "opacity": 0.5, "position": "bottom-right",
+        **params})], fmt=fmt)
+
+
+def _splice_sources():
+    arr = photo(320, 448)
+    out = {}
+    for name, save in (("progressive", {"progressive": True}), ("baseline", {})):
+        bio = io.BytesIO()
+        PILImage.fromarray(arr).save(bio, format="JPEG", quality=90, **save)
+        out[name] = bio.getvalue()
+    from imageprocessor_tpu.runtime import nativecodec
+    planes, qt, (w, h), samp = nativecodec.scan_jpeg_coefficients(out["baseline"])
+    out["restart"] = nativecodec.emit_jpeg_from_coefficients(
+        planes, qt, w, h, samp[0], restart_interval=6)
+    bio = io.BytesIO()
+    PILImage.fromarray(arr[:, :, 0], mode="L").save(bio, format="JPEG", quality=88)
+    out["grayscale"] = bio.getvalue()
+    return out
+
+
+SPLICE_SOURCES = _splice_sources()
+
+
+@pytest.mark.parametrize("kind", sorted(SPLICE_SOURCES))
+def test_splice_sources_match_reference(engines, kind):
+    """Progressive (coefficient re-encode), restart-marked, grayscale
+    (promoted in the coefficient domain) and two-watermark renditions:
+    byte-identical to the reference's, the bits outside the band kept."""
+    (ref, _), (port, s_port) = engines
+    blob = SPLICE_SOURCES[kind]
+    task = _wm_task()
+    if kind == "baseline":   # two watermark ops: independent renditions
+        task.operations.append(OperationParams(OperationType.WATERMARK, {
+            "text": "second", "opacity": 0.5, "position": "top-left"}))
+    a = ref.process_tasks([(task, blob)])[0]
+    b = port.process_tasks([(to_port(task), blob)])[0]
+    _compare_artifacts(engines, a, b, exact_ops=("watermark",))
+    got = np.asarray(PILImage.open(io.BytesIO(
+        s_port.get_object(b.result.processed_paths["watermark"]))).convert("RGB"))
+    src = np.asarray(PILImage.open(io.BytesIO(blob)).convert("RGB"))
+    rows = slice(96, None) if kind == "baseline" else slice(0, 256)
+    np.testing.assert_array_equal(got[rows], src[rows])
+
+
+def test_png_output_and_png_source_never_splice(engines):
+    """format=png forces the PNG encoder after the device blend; a PNG
+    source takes the pixel path (device blend, then B3 for its JPEG
+    rendition) beside a spliced JPEG in the same call."""
+    (ref, _), (port, _) = engines
+    arr = photo(200, 264)
+    bio = io.BytesIO()
+    PILImage.fromarray(arr).save(bio, format="PNG")
+    png = bio.getvalue()
+    jpg = jpeg_bytes(200, 264)
+    tasks = [_wm_task(fmt="png"), _wm_task(), _wm_task(fmt="png")]
+    blobs = [jpg, png, png]
+    r_ref = ref.process_tasks(list(zip(tasks, blobs)))
+    r_port = port.process_tasks([(to_port(t), b) for t, b in zip(tasks, blobs)])
+    for a, b in zip(r_ref, r_port):
+        _compare_artifacts(engines, a, b)
+    assert r_port[0].result.processed_paths["watermark"].endswith(".png")
+    assert r_port[1].result.processed_paths["watermark"].endswith(".jpeg")
+
+
+def test_gif_source_outputs_match_reference(engines):
+    """GIF outputs go through the same native Plan9 quantizer as the
+    reference's, so they decode to the same pixels; a GIF source's
+    watermark is re-encoded as JPEG (watermark.go)."""
+    (ref, s_ref), (port, s_port) = engines
+    bio = io.BytesIO()
+    PILImage.fromarray(photo(150, 210)).save(bio, format="GIF")
+    blob = bio.getvalue()
+    task = make_task([DOWNSCALE[0], WATERMARK], fmt="gif")
+    a = ref.process_tasks([(task, blob)])[0]
+    b = port.process_tasks([(to_port(task), blob)])[0]
+    _compare_artifacts(engines, a, b)
+    path = b.result.processed_paths["thumbnail"]
+    assert path.endswith(".gif")
+    x, _ = decode_image(s_ref.get_object(path))
+    y, _ = decode_image(s_port.get_object(path))
+    np.testing.assert_array_equal(x, y)
+    assert b.result.processed_paths["watermark"].endswith(".jpeg")
+
+
+def test_watermark_only_splice_group_skips_the_device(engines, monkeypatch):
+    """A splice-served watermark-only group never packs (its placeholder
+    has no pixels) and launches nothing."""
+    _, (port, _) = engines
+    calls = []
+    monkeypatch.setattr(port, "_upload", lambda *a: calls.append(a))
+    res = port.process_tasks([(to_port(_wm_task()), b) for b in BLOBS])
+    assert all(r.result.status is port_domain.ImageStatus.COMPLETED for r in res)
+    assert calls == []

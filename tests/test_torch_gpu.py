@@ -1,12 +1,14 @@
-"""Kernels B1 and B2 on the card against their plain PyTorch versions.
+"""Kernels B1-B4 on the card against their plain PyTorch versions.
 
 These need a CUDA card and nvcc (the kernels have no CPU mode); without a
 card they skip. Run them on a GPU host with:
 
     python -m pytest tests/test_torch_gpu.py -m gpu
 
-Limits: B1 <= 1 LSB inside each valid region (IDCT summation order), B2
-exactly equal (same float32 operations in the same order).
+Limits: B1 <= 1 LSB inside each valid region (IDCT summation order); B2
+and B4 exactly equal (same float32 operations in the same order); B3
+<= 1 quantization step inside each image's ceil16(valid) grid (FDCT
+summation order).
 """
 
 import numpy as np
@@ -15,7 +17,9 @@ import torch
 
 from imageprocessor_tpu_torch.ops import fused_resample as fr
 from imageprocessor_tpu_torch.ops import jpeg_kernels
+from imageprocessor_tpu_torch.ops import planar_resample as pr
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
+from imageprocessor_tpu_torch.ops.jpeg_encode import encode_420_plain, quality_qtables
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +72,40 @@ def test_b2_matches_plain(cuda):
     assert fr.launches == n + 1
     assert torch.equal(a, fr.resample_plain(src, thumb))
     assert torch.equal(b, fr.resample_plain(src, resize))
+
+
+def test_b3_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    dims = [(200, 200), (190, 196), (1, 1)]
+    canvas = torch.from_numpy(rng.integers(0, 256, (3, 3, 224, 256),
+                                           dtype=np.uint8)).to(cuda)
+    rgb = canvas[:, :, :208, :208]   # a strided view, read in place
+    vh = torch.tensor(dims, dtype=torch.int32, device=cuda)
+    qt = torch.from_numpy(quality_qtables(85).astype(np.float32)).to(cuda)
+    n = jpeg_kernels.encode_launches
+    got = jpeg_kernels.encode_420(rgb, vh, qt)
+    want = encode_420_plain(rgb, vh, qt)
+    torch.cuda.synchronize()
+    assert jpeg_kernels.encode_launches == n + 1
+    for g, w, div in zip(got, want, (1, 2, 2)):
+        for i, (h, wd) in enumerate(dims):
+            gh, gw = -(-h // 16) * 16 // div, -(-wd // 16) * 16 // div
+            assert (g[i, :gh, :gw].int() - w[i, :gh, :gw].int()).abs().max() <= 1
+
+
+def test_b4_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.integers(0, 256, (2, 3, 384, 512),
+                                        dtype=np.uint8)).to(cuda)
+    src_hw = np.array([[300, 400], [384, 256]])
+    cy, chw = fr.center_crop_windows(src_hw)
+    for taps in (fr.make_taps(src_hw, np.full((2, 2), 200), (200, 200), (384, 512),
+                              cy, chw),
+                 fr.make_taps(src_hw, np.array([[768, 1024], [90, 60]]),
+                              (768, 1024), (384, 512))):
+        taps = taps.to(cuda)
+        n = pr.launches
+        got = pr.planar_resample(src, taps)
+        torch.cuda.synchronize()
+        assert pr.launches == n + 1
+        assert torch.equal(got, fr.resample_plain(src, taps))

@@ -1,8 +1,9 @@
 """The port never needs jax or the reference package, never falls back
 silently, and chip_smoke.py refuses to run without a card.
 
-The first test imports the package, its engine and every module
-chip_smoke.py imports in a fresh interpreter where ``import jax`` and
+The first test imports the package, its engine, the watermark and
+splice modules, the kernels' op modules and every module chip_smoke.py
+imports in a fresh interpreter where ``import jax`` and
 ``import imageprocessor_tpu`` fail (``sys.modules[...] = None``), then
 checks that no module of either got loaded.
 """
@@ -22,7 +23,9 @@ import torch
 from imageprocessor_tpu_torch.device import resolve_device
 from imageprocessor_tpu_torch.ops import fused_resample as fr
 from imageprocessor_tpu_torch.ops import jpeg_kernels
+from imageprocessor_tpu_torch.ops import planar_resample as pr
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
+from imageprocessor_tpu_torch.ops.jpeg_encode import encode_420_plain
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "imageprocessor_tpu_torch"
@@ -41,7 +44,12 @@ def _chip_smoke_imports() -> list[str]:
 
 def test_imports_succeed_with_jax_blocked():
     mods = ["imageprocessor_tpu_torch", "imageprocessor_tpu_torch.runtime.engine",
-            "imageprocessor_tpu_torch.models.pipeline", "chip_smoke",
+            "imageprocessor_tpu_torch.models.pipeline",
+            "imageprocessor_tpu_torch.ops.watermark",
+            "imageprocessor_tpu_torch.runtime.splice",
+            "imageprocessor_tpu_torch.runtime.hostcodec",
+            "imageprocessor_tpu_torch.ops.jpeg_encode",
+            "imageprocessor_tpu_torch.ops.planar_resample", "chip_smoke",
             *_chip_smoke_imports()]
     assert "imageprocessor_tpu_torch.runtime.engine" in mods
     code = textwrap.dedent(f"""
@@ -91,18 +99,30 @@ def test_cpu_tensors_take_the_plain_path_and_others_raise():
     cr = cb.clone()
     qt = torch.ones((1, 3, 8, 8), dtype=torch.float32)
     cv = torch.tensor([[8, 8]], dtype=torch.int32)
-    n1, n2 = jpeg_kernels.launches, fr.launches
+    counts = (jpeg_kernels.launches, jpeg_kernels.encode_launches, fr.launches,
+              pr.launches)
     out = jpeg_kernels.decode_coefs(yc, cb, cr, qt, cv, 2, 2, (16, 16))
     assert torch.equal(out, decode_ycbcr(yc, cb, cr, qt, cv))
     taps = fr.make_taps(np.array([[16, 16]]), np.array([[4, 4]]), (4, 4), (16, 16))
     a, _ = fr.fused_resample(out, taps, None)
     assert torch.equal(a, fr.resample_plain(out, taps))
-    assert (jpeg_kernels.launches, fr.launches) == (n1, n2)
+    assert torch.equal(pr.planar_resample(out, taps), a)
+    vh = torch.tensor([[12, 13]], dtype=torch.int32)
+    qt2 = torch.full((2, 8, 8), 3.0)
+    for x, y in zip(jpeg_kernels.encode_420(out, vh, qt2),
+                    encode_420_plain(out, vh, qt2)):
+        assert torch.equal(x, y)
+    assert counts == (jpeg_kernels.launches, jpeg_kernels.encode_launches,
+                      fr.launches, pr.launches)
     meta = [t.to("meta") for t in (yc, cb, cr, qt, cv)]
     with pytest.raises(ValueError, match="device"):
         jpeg_kernels.decode_coefs(*meta, 2, 2, (16, 16))
     with pytest.raises(ValueError, match="device"):
         fr.fused_resample(out.to("meta"), taps.to("meta"), None)
+    with pytest.raises(ValueError, match="device"):
+        pr.planar_resample(out.to("meta"), taps.to("meta"))
+    with pytest.raises(ValueError, match="device"):
+        jpeg_kernels.encode_420(out.to("meta"), vh.to("meta"), qt2.to("meta"))
 
 
 @pytest.mark.parametrize("alone", [False, True])

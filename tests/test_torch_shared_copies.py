@@ -7,14 +7,19 @@ metrics. Every top-level import, function, class and constant of a copy
 must have the same source as the original's once the package name is
 swapped back, and a copy may leave out only the names listed in OMITTED.
 
-runtime/codecs.py is the one copy that differs: it has no libjpeg shim
-(runtime/nativecodec.py), so its decode_image and encode_image are held
-to the original's results instead — PNG and BMP exactly; JPEG within
-1 LSB on decode (two libjpeg builds may round the IDCT and the chroma
-upsample differently) and PSNR > 45 dB on encode (the same IJG quality
-tables; the encoders may round their FDCTs differently). GIF outputs are
-not compared: the copy uses PIL's adaptive palette where the original
-reproduces Go's Plan9 palette through the native quantizer.
+Two copies differ in named places:
+
+* runtime/codecs.py has no libjpeg shim (runtime/nativecodec.py): it
+  imports the port's host library (runtime/hostcodec.py) in its place,
+  and its decode_image and encode_image are held to the original's
+  results instead — PNG, BMP and GIF exactly (both quantize GIFs with the
+  same native Plan9 code); JPEG within 1 LSB on decode (two libjpeg
+  builds may round the IDCT and the chroma upsample differently) and
+  PSNR > 45 dB on encode (the same IJG quality tables; the encoders may
+  round their FDCTs differently);
+* runtime/splice.py imports runtime/hostcodec.py and the port's
+  ops/watermark.py where the original imports nativecodec and the
+  reference's ops/watermark.py; only its import lines may differ.
 """
 
 import ast
@@ -35,14 +40,18 @@ REF, PORT = REPO / "imageprocessor_tpu", REPO / "imageprocessor_tpu_torch"
 COPIES = ["domain/__init__.py", "domain/image.py", "domain/task.py", "errors.py",
           "broker/base.py", "broker/memory.py", "storage/object_store.py",
           "storage/localfs.py", "storage/metadata.py", "storage/sqlite_meta.py",
-          "runtime/batcher.py", "runtime/codecs.py", "utils/metrics.py"]
+          "runtime/batcher.py", "runtime/codecs.py", "runtime/splice.py",
+          "utils/metrics.py"]
 # names of the original a copy leaves out: factories of backends the port
-# lacks, and the libjpeg shim
+# lacks
 OMITTED = {"broker/base.py": {"build_broker"},
            "storage/object_store.py": {"build_object_store"},
-           "storage/metadata.py": {"build_metadata_store"},
-           "runtime/codecs.py": {"from imageprocessor_tpu.runtime"}}
-DIFFERS = {"runtime/codecs.py": {"decode_image", "encode_image"}}
+           "storage/metadata.py": {"build_metadata_store"}}
+DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
+                                 "decode_image", "encode_image"}}
+# copies whose top-level imports are their own (the host library in place
+# of nativecodec); every other top-level name keeps the original's source
+OWN_IMPORTS = {"runtime/splice.py"}
 
 
 def _top_level(path: Path, rename: bool) -> dict[str, str]:
@@ -50,9 +59,12 @@ def _top_level(path: Path, rename: bool) -> dict[str, str]:
     src = path.read_text()
     if rename:
         src = src.replace("imageprocessor_tpu_torch", "imageprocessor_tpu")
+    own_imports = path.relative_to(path.parents[1]).as_posix() in OWN_IMPORTS
     out = {}
     for node in ast.parse(src).body:
         if isinstance(node, ast.ImportFrom):
+            if own_imports and node.module != "__future__":
+                continue
             names = [node.module]
         elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             names = [node.name]
@@ -118,7 +130,7 @@ def test_truncated_jpeg_refused_alike():
         port_codecs.decode_image(blob)
 
 
-@pytest.mark.parametrize("fmt", ["jpeg", "png", "bmp"])
+@pytest.mark.parametrize("fmt", ["jpeg", "png", "bmp", "gif"])
 def test_encode_image_matches_original(fmt):
     img = _image(120, 161, seed=3)
     a, _ = ref_codecs.decode_image(ref_codecs.encode_image(img, fmt, 85))
