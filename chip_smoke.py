@@ -11,8 +11,13 @@ Phases (any failure exits non-zero):
 2. build   — compile the kernels (csrc/*.cu, nvcc, sm_90a) and the host
    entropy-scan library from this checkout's sources;
 3. B1      — the JPEG coefficient-decode kernel against its plain PyTorch
-   version: all four subsamplings with mixed valid dims and pad rows, and
-   8 x 3072 x 4096 4:2:0 (limit: 1 LSB inside each valid region);
+   version, all four subsamplings: mixed valid dims with pad rows (the
+   200 rung on a 208 canvas among them), and the edges of its tiling and
+   store widths — one MCU row at batch 1, one MCU column, a 16 x 528
+   canvas (wider than one 256-wide tile, not a multiple of it), an out_w
+   that is not a multiple of 8 (bytewise stores); then 8 x 3072 x 4096 in
+   4:2:2, 4:4:0 and 4:2:0 (limit: 1 LSB inside each valid region; each
+   case prints its error);
 4. B2      — the fused resize+thumbnail kernel against its plain version,
    both thumbnail modes and an upscale (limit: 1 LSB);
 5. main path — the worker's own steps on the default (empty-flag) upload
@@ -26,8 +31,11 @@ Phases (any failure exits non-zero):
    match the float64 Go oracle; a warm rerun reports host-clock
    throughput and the engine's stage times;
 6. timing  — CUDA events after warm-up at 8 x 3072 x 4096: each kernel
-   and its plain version, and the composed decode -> resample step; the
-   host clock times one group's tap tables (build and upload);
+   and its plain version, and the composed decode -> resample step; B1's
+   and B2's bounds (bytes over 3.35 TB/s or FP32 operations over
+   67 TFLOP/s, whichever is larger), what sets each, and each kernel's
+   share of it; the host clock times one group's tap tables (build and
+   upload);
 7. B3      — the JPEG encode front half against its plain version: mixed
    valid dims with pad rows (64x256, 384x512, 208x208) and
    8 x 3072 x 4096 (limit: 1 quantization step inside each image's
@@ -47,7 +55,8 @@ Phases (any failure exits non-zero):
    versions; each plan's line carries the engine's stage times;
 10. timing — CUDA events at 8 x 3072 x 4096: B3 and B4 (resize to
    1024 x 768) and their plain versions, the blend, and the composed
-   splice-off step B1 -> B2 -> blend -> B3.
+   splice-off step B1 -> B2 -> blend -> B3; B3's and B4's bounds and
+   shares as in phase 6.
 
 The watermark's font is the reference's lookup (IMAGEPROCESSOR_FONT, the
 reference package's assets/fonts, matplotlib's DejaVu Sans); where none
@@ -56,8 +65,11 @@ found on the host, or at Pillow's bundled default font written under
 build/, and prints which.
 
 The line before the last is the card's name and power limit as
-nvidia-smi gives them, the one before it a JSON summary of the kernels;
-the last line is {"ok": true, "device": {...}}. Only imageprocessor_tpu_torch
+nvidia-smi gives them, the one before it a JSON summary of the kernels
+(launches on the main path, max error, ms, plain_ms, bound_ms, bound_by,
+roofline_share, and library_ms: null, since no single PyTorch call
+computes any of the four functions); the last line is
+{"ok": true, "device": {...}}. Only imageprocessor_tpu_torch
 is imported: neither jax nor the reference package imageprocessor_tpu.
 """
 
@@ -83,6 +95,9 @@ B, H, W = 8, 3072, 4096          # the main path's 12 MP group
 LSB_LIMIT = 1
 STEP_LIMIT = 1                   # B3: quantization steps
 WM_MARGIN = 32                   # px past the text box a watermark may touch
+HBM_BYTES_S = 3.35e12            # H100 SXM device memory, bytes/s (data sheet)
+FP32_FLOP_S = 67e12              # H100 SXM FP32 outside the tensor cores
+MODES = ((2, 2), (1, 2), (2, 1), (1, 1))   # 4:2:0, 4:2:2, 4:4:0, 4:4:4
 
 
 def log(msg: str) -> None:
@@ -125,6 +140,90 @@ def max_err(a: torch.Tensor, b: torch.Tensor, dims) -> int:
     """Max |a - b| over each image's valid (h, w) region."""
     return max(int((a[i, :, :h, :w].int() - b[i, :, :h, :w].int()).abs().max())
                for i, (h, w) in enumerate(dims))
+
+
+def bound(nbytes: float, flop: float) -> dict:
+    """The least time the card could take (ms) for work that must move
+    `nbytes` and compute `flop` FP32 operations, and which of the two
+    sets it."""
+    t_bytes, t_flop = nbytes / HBM_BYTES_S * 1e3, flop / FP32_FLOP_S * 1e3
+    return {"ms": max(t_bytes, t_flop), "nbytes": nbytes, "flop": flop,
+            "by": "bytes" if t_bytes >= t_flop else "operations"}
+
+
+def bound_line(name: str, ms: float, b: dict) -> str:
+    return (f"{name} bound {b['ms']:.4f} ms, set by {b['by']} ({b['nbytes'] / 1e6:.1f} MB "
+            f"at {HBM_BYTES_S / 1e12:.2f} TB/s; {b['flop'] / 1e9:.2f} GFLOP at "
+            f"{FP32_FLOP_S / 1e12:.0f} TFLOP/s FP32); share of bound "
+            f"{b['ms'] / ms:.3f}")
+
+
+def b1_bound(args, fh: int, fw: int, out_hw) -> dict:
+    """B1: every coefficient canvas, table and extent read once, the RGB
+    bucket written once. FP32 operations: per coefficient, dequantize and
+    clamp (3), the two even/odd 8-point passes (16) and the level shift
+    (1), plus the [0, 255] clamp (2) of chroma that is upsampled; per
+    pixel, BT.601 with the chroma offsets (13), round and clip (6), and
+    per subsampled plane the fancy upsample's taps (2 per chroma sample of
+    a luma row vertically, 2 per pixel horizontally)."""
+    yc, cbc = args[0], args[1]
+    coefs = yc.numel() + 2 * cbc.numel()
+    px = yc.shape[0] * out_hw[0] * out_hw[1]
+    up = 2 * ((2 / fw if fh == 2 else 0) + (2 if fw == 2 else 0))
+    clamp = 4 * cbc.numel() if fh * fw > 1 else 0
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 3 * px
+    return bound(float(nbytes), 20.0 * coefs + clamp + (19 + up) * px)
+
+
+def b3_bound(rgb, valid) -> dict:
+    """B3, for this batch's valid extents: each valid RGB pixel read once,
+    each coefficient of the ceil16(valid) grid written once (3 bytes per
+    pixel); per pixel the colour conversion (17 operations) and box mean
+    (2), per coefficient the level shift, two 8-point passes and the
+    quantization (34)."""
+    h, w = rgb.shape[2:]
+    vh = np.clip(valid[:, 0].cpu().numpy().astype(np.int64), 1, h)
+    vw = np.clip(valid[:, 1].cpu().numpy().astype(np.int64), 1, w)
+    grid = (-(-vh // 16) * 16 * (-(-vw // 16) * 16)).sum()
+    nbytes = 3 * (vh * vw).sum() + 3 * grid + 2 * 64 * 4 + valid.numel() * 4
+    return bound(float(nbytes), (19 + 34 * 1.5) * float(grid))
+
+
+def resample_bound(taps_list) -> dict:
+    """B2 / B4: the source pixels that the taps of the outputs touch, each
+    read once (per image, the union of the outputs' row x column grids),
+    the tap tables, and every output written once; 11 operations per
+    output sample (three lerps, the xdraw quantization)."""
+    grids = [[(set(np.concatenate([t.r0[i].cpu().numpy(), t.r1[i].cpu().numpy()])),
+               set(np.concatenate([t.c0[i].cpu().numpy(), t.c1[i].cpu().numpy()])))
+              for i in range(t.r0.shape[0])] for t in taps_list]
+    touched = 0
+    for per_img in zip(*grids):
+        touched += sum(len(r) * len(c) for r, c in per_img)
+        if len(per_img) == 2:   # the two grids' intersection, counted once
+            (ra, ca), (rb, cb) = per_img
+            touched -= len(ra & rb) * len(ca & cb)
+    outs = sum(3 * t.r0.shape[0] * t.shape[0] * t.shape[1] for t in taps_list)
+    tables = sum(x.numel() * x.element_size() for t in taps_list
+                 for x in (t.r0, t.r1, t.fy, t.c0, t.c1, t.fx))
+    return bound(3.0 * touched + outs + tables, 11.0 * outs)
+
+
+def b1_cases(fh: int, fw: int) -> dict:
+    """tag -> (canvas h, w, valid dims, out_hw, pad rows to) of phase 3,
+    for an MCU of 8 fh x 8 fw: mixed valid dims with pad rows (the 200
+    rung on a 208 canvas among them), then the edges of B1's tiling and
+    store widths (tests/test_torch_gpu.py b1_shapes)."""
+    mh, mw = 8 * fh, 8 * fw
+    return {
+        "64x256": (64, 256, [(60, 250), (64, 256), (40, 130)], (64, 256), 4),
+        "w200": (208, 208, [(200, 200), (190, 196)], (200, 200), 4),
+        "384x512": (384, 512, [(380, 500), (384, 512), (200, 260)], (384, 512), 4),
+        "mcu_row_b1": (mh, 256, [(mh - 1, 250)], (mh, 256), 0),
+        "mcu_col": (64, mw, [(61, mw - 1), (64, mw)], (64, mw), 0),
+        "w528": (16, 528, [(16, 528), (13, 517)], (16, 528), 0),
+        "out_w_odd": (64, 528, [(61, 523), (50, 200)], (61, 523), 0),
+    }
 
 
 def coef_case(dims, h, w, fh, fw, seed, pad_to=0):
@@ -324,30 +423,32 @@ def main() -> int:
 
     # ---- 3. B1 vs plain
     b1_err = 0
-    for fh, fw in ((2, 2), (1, 2), (2, 1), (1, 1)):
-        for ch, cw, dims, out_hw in (
-                (64, 256, [(60, 250), (64, 256), (40, 130)], (64, 256)),
-                (208, 208, [(200, 200), (190, 196)], (200, 200)),
-                (384, 512, [(380, 500), (384, 512), (200, 260)], (384, 512))):
-            args = coef_case(dims, ch, cw, fh, fw, seed=fh * 10 + fw, pad_to=4)
+    for fh, fw in MODES:
+        errs = []
+        for tag, (ch, cw, dims, out_hw, pad) in b1_cases(fh, fw).items():
+            args = coef_case(dims, ch, cw, fh, fw, seed=fh * 10 + fw, pad_to=pad)
             got = jpeg_kernels.decode_coefs(*args, fh, fw, out_hw)
             want = decode_ycbcr(*args, fh=fh, fw=fw, out_h=out_hw[0],
                                 out_w=out_hw[1])
             torch.cuda.synchronize()
             err = max_err(got, want, dims)
+            errs.append(f"{tag} {err}")
             b1_err = max(b1_err, err)
             if err > LSB_LIMIT:
-                fail(f"B1 {fh}x{fw} {ch}x{cw}: {err} LSB")
+                fail(f"B1 {fh}x{fw} {tag}: {err} LSB")
+        log(f"[3 B1] {fh}x{fw} max |kernel - plain| LSB per case: " + ", ".join(errs))
     big_dims = [(3000, 4000)] * 6 + [(2000, 3000), (3072, 4096)]
-    big = coef_case(big_dims, H, W, 2, 2, seed=7)
-    got = jpeg_kernels.decode_coefs(*big, 2, 2, (H, W))
-    want = decode_ycbcr(*big, fh=2, fw=2)
-    err = max_err(got, want, big_dims)
-    b1_err = max(b1_err, err)
-    if err > LSB_LIMIT:
-        fail(f"B1 8x3072x4096 4:2:0: {err} LSB")
-    log(f"[3 B1] 12 cases x 4 modes + 8x3072x4096 4:2:0: max |kernel - "
-        f"plain| = {b1_err} LSB (limit {LSB_LIMIT})")
+    for fh, fw in ((1, 2), (2, 1), (2, 2)):   # 4:2:0 last: phase 6 times it
+        big = coef_case(big_dims, H, W, fh, fw, seed=7 if fh * fw == 4 else 7 + fh)
+        got = jpeg_kernels.decode_coefs(*big, fh, fw, (H, W))
+        want = decode_ycbcr(*big, fh=fh, fw=fw)
+        err = max_err(got, want, big_dims)
+        del got, want
+        b1_err = max(b1_err, err)
+        log(f"[3 B1] {fh}x{fw} 8x3072x4096: max |kernel - plain| = {err} LSB")
+        if err > LSB_LIMIT:
+            fail(f"B1 {fh}x{fw} 8x3072x4096: {err} LSB")
+    log(f"[3 B1] every case: max |kernel - plain| = {b1_err} LSB (limit {LSB_LIMIT})")
 
     # ---- 4. B2 vs plain
     rng = np.random.default_rng(11)
@@ -538,6 +639,10 @@ def main() -> int:
         f"B2 {b2_ms:.4f} ms (plain {b2_plain:.4f} ms) per 8x3072x4096 batch; "
         f"decode->resample step {step_ms:.4f} ms = "
         f"{B * 1000.0 / step_ms:.1f} images/s (CUDA events)")
+    b1_b = b1_bound(big, 2, 2, (H, W))
+    b2_b = resample_bound([taps_t, taps_r])
+    log(f"[6 timing] {card}: {bound_line('B1', b1_ms, b1_b)}")
+    log(f"[6 timing] {card}: {bound_line('B2', b2_ms, b2_b)}")
     # one group's tap tables for the default plan, built on the host and
     # uploaded afresh for every group (the port keeps no cache of them)
     specs = plan_output_specs(plan)
@@ -835,28 +940,32 @@ def main() -> int:
         f"blend {blend_ms:.4f} ms per 8x3072x4096 batch; splice-off step "
         f"B1 -> B2 -> blend -> B3 {off_ms:.4f} ms = {B * 1000.0 / off_ms:.1f} "
         f"images/s (CUDA events)")
+    b3_b = b3_bound(src, big_vh)
+    b4_b = resample_bound([taps_r])
+    log(f"[10 timing] {card}: {bound_line('B3', b3_ms, b3_b)}")
+    log(f"[10 timing] {card}: {bound_line('B4', b4_ms, b4_b)}")
+
+    def row(name, source, replaces, launched, err, ms, plain, b):
+        # library_ms: no single PyTorch call computes any of the four:
+        # torch has no 8x8 DCT (B1, B3), and interpolate takes one output
+        # size for the whole batch, where B2 / B4 resample per-image
+        # source windows to per-image sizes with Go's xdraw rounding
+        return {"name": name, "route": "cuda",
+                "source": f"imageprocessor_tpu_torch/csrc/{source}",
+                "replaces": f"imageprocessor_tpu/ops/{replaces}",
+                "launches": launched, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
+                "roofline_share": b["ms"] / ms, "library_ms": None}
 
     summary = {"kernels": [
-        {"name": "jpeg_decode_b1", "route": "cuda",
-         "source": "imageprocessor_tpu_torch/csrc/jpeg_decode.cu",
-         "replaces": "imageprocessor_tpu/ops/pallas_jpeg.py:548",
-         "launches": launches["B1"], "max_abs_err": max(b1_err, main_err),
-         "ms": b1_ms, "plain_ms": b1_plain},
-        {"name": "fused_resample_b2", "route": "cuda",
-         "source": "imageprocessor_tpu_torch/csrc/fused_resample.cu",
-         "replaces": "imageprocessor_tpu/ops/pallas_fused.py:591",
-         "launches": launches["B2"], "max_abs_err": max(b2_err, main_err),
-         "ms": b2_ms, "plain_ms": b2_plain},
-        {"name": "jpeg_encode_b3", "route": "cuda",
-         "source": "imageprocessor_tpu_torch/csrc/jpeg_encode.cu",
-         "replaces": "imageprocessor_tpu/ops/pallas_jpeg.py:932",
-         "launches": form_launches["B3"], "max_abs_err": max(b3_err, form_step),
-         "ms": b3_ms, "plain_ms": b3_plain},
-        {"name": "planar_resample_b4", "route": "cuda",
-         "source": "imageprocessor_tpu_torch/csrc/planar_resample.cu",
-         "replaces": "imageprocessor_tpu/ops/pallas_resample.py:341",
-         "launches": form_launches["B4"], "max_abs_err": max(b4_err, form_lsb),
-         "ms": b4_ms, "plain_ms": b4_plain},
+        row("jpeg_decode_b1", "jpeg_decode.cu", "pallas_jpeg.py:548",
+            launches["B1"], max(b1_err, main_err), b1_ms, b1_plain, b1_b),
+        row("fused_resample_b2", "fused_resample.cu", "pallas_fused.py:591",
+            launches["B2"], max(b2_err, main_err), b2_ms, b2_plain, b2_b),
+        row("jpeg_encode_b3", "jpeg_encode.cu", "pallas_jpeg.py:932",
+            form_launches["B3"], max(b3_err, form_step), b3_ms, b3_plain, b3_b),
+        row("planar_resample_b4", "planar_resample.cu", "pallas_resample.py:341",
+            form_launches["B4"], max(b4_err, form_lsb), b4_ms, b4_plain, b4_b),
     ]}
     print(json.dumps(summary))
     print(card)

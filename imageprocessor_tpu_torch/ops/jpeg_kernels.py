@@ -23,6 +23,13 @@ launches = 0
 encode_launches = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned base (B1's 16-byte loads need
+    both): a view that is not is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(yc, cbc, crc, qt, cv, fh: int, fw: int,
            out_hw: tuple[int, int]) -> None:
     if fh not in (1, 2) or fw not in (1, 2):
@@ -59,7 +66,8 @@ def decode_coefs(yc: torch.Tensor, cbc: torch.Tensor, crc: torch.Tensor,
                             out_h=out_hw[0], out_w=out_hw[1])
     if yc.device.type != "cuda":
         raise ValueError(f"unsupported device {yc.device}")
-    yc, cbc, crc, qt, cv = (t.contiguous() for t in (yc, cbc, crc, qt, cv))
+    yc, cbc, crc, qt = (_aligned(t) for t in (yc, cbc, crc, qt))
+    cv = cv.contiguous()
     b, ch, cw = yc.shape
     out = torch.empty((b, 3, out_hw[0], out_hw[1]), dtype=torch.uint8,
                       device=yc.device)

@@ -1,7 +1,8 @@
 """Kernels B1-B4 on the card against their plain PyTorch versions.
 
 These need a CUDA card and nvcc (the kernels have no CPU mode); without a
-card they skip. Run them on a GPU host with:
+card they skip. B1 runs every subsampling at the edges of its tiling and
+of its two store widths (``b1_shapes``). Run them on a GPU host with:
 
     python -m pytest tests/test_torch_gpu.py -m gpu
 
@@ -43,17 +44,34 @@ def _coefs(dims, h, w, fh, fw, seed, device):
     return [torch.from_numpy(a).to(device) for a in (yc, cbc, crc, qt, cv)]
 
 
+def b1_shapes(fh: int, fw: int) -> dict:
+    """(canvas h, w, valid dims, out_hw) at the edges of B1's tiling, for
+    an MCU of 8 fh x 8 fw: the 200 rung on a 208 canvas; one MCU row at
+    batch 1; one MCU column; a canvas wider than one 256-wide tile and not
+    a multiple of it (16 x 528, whole 16 x 16 MCUs); an out_w that is not
+    a multiple of 8 (bytewise stores) with out_h < ch."""
+    mh, mw = 8 * fh, 8 * fw
+    return {
+        "w200": (208, 208, [(200, 200), (190, 196)], (200, 200)),
+        "mcu_row_b1": (mh, 256, [(mh - 1, 250)], (mh, 256)),
+        "mcu_col": (64, mw, [(61, mw - 1), (64, mw)], (64, mw)),
+        "w528": (16, 528, [(16, 528), (13, 517)], (16, 528)),
+        "out_w_odd": (64, 528, [(61, 523), (50, 200)], (61, 523)),
+    }
+
+
+@pytest.mark.parametrize("shape", sorted(b1_shapes(2, 2)))
 @pytest.mark.parametrize("fh,fw", [(2, 2), (1, 2), (2, 1), (1, 1)])
-def test_b1_matches_plain(cuda, fh, fw):
-    dims = [(200, 200), (190, 196)]
-    args = _coefs(dims, 208, 208, fh, fw, seed=fh * 10 + fw, device=cuda)
+def test_b1_matches_plain(cuda, fh, fw, shape):
+    h, w, dims, out_hw = b1_shapes(fh, fw)[shape]
+    args = _coefs(dims, h, w, fh, fw, seed=fh * 10 + fw, device=cuda)
     n = jpeg_kernels.launches
-    got = jpeg_kernels.decode_coefs(*args, fh, fw, (200, 200))
-    want = decode_ycbcr(*args, fh=fh, fw=fw, out_h=200, out_w=200)
+    got = jpeg_kernels.decode_coefs(*args, fh, fw, out_hw)
+    want = decode_ycbcr(*args, fh=fh, fw=fw, out_h=out_hw[0], out_w=out_hw[1])
     torch.cuda.synchronize()
     assert jpeg_kernels.launches == n + 1
-    for i, (h, w) in enumerate(dims):
-        assert (got[i, :, :h, :w].int() - want[i, :, :h, :w].int()).abs().max() <= 1
+    for i, (vh, vw) in enumerate(dims):
+        assert (got[i, :, :vh, :vw].int() - want[i, :, :vh, :vw].int()).abs().max() <= 1
 
 
 def test_b2_matches_plain(cuda):

@@ -18,6 +18,7 @@ from imageprocessor_tpu.ops.jpeg_decode import batched_decode_ycbcr
 from imageprocessor_tpu_torch.ops import jpeg_kernels
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
 from tests.test_pallas_jpeg import _case
+from tests.test_torch_gpu import b1_shapes
 
 MODES = [(2, 2), (1, 2), (2, 1), (1, 1)]
 
@@ -79,6 +80,53 @@ def test_crop_to_bucket_and_pad_rows(fh, fw):
     assert out.shape == (4, 3, 200, 200)
     assert _max_valid_diff(ref, out, dims) <= 1
     assert (out[2:] == 128).all()   # zero coefficients: mid-grey
+
+
+def _pallas_canvas(a, mh, mw):
+    """a (B, h, w) zero-padded to the smallest canvas make_plan takes (h a
+    multiple of 16, w of 128 and >= 256), scaled by the plane's
+    subsampling (mh, mw). Padding lies past every valid extent, so valid
+    pixels do not change."""
+    _, h, w = a.shape
+    hp = -(-h * mh // 16) * 16 // mh
+    wp = max(256, -(-w * mw // 128) * 128) // mw
+    return np.pad(a, ((0, 0), (0, hp - h), (0, wp - w)))
+
+
+@pytest.mark.parametrize("fh,fw", MODES)
+@pytest.mark.parametrize("shape", sorted(b1_shapes(2, 2)))
+def test_plain_matches_reference_at_tiling_edges(shape, fh, fw):
+    """The shapes that B1's kernel meets at the edges of its tiling and
+    store widths (tests/test_torch_gpu.py holds the kernel to the plain
+    version at the same ones): the plain decode against the XLA decode
+    and the interpret-mode Pallas kernel, <= 1 LSB."""
+    h, w, dims, (oh, ow) = b1_shapes(fh, fw)[shape]
+    yc, cbc, crc, qt, cv = _case(dims, h, w, seed=7, fh=fh, fw=fw)
+    out = jpeg_kernels.decode_coefs(*_torch(yc, cbc, crc, qt, cv), fh, fw,
+                                    (oh, ow)).numpy()
+    assert out.shape == (len(dims), 3, oh, ow)
+    xla = np.asarray(batched_decode_ycbcr(yc, cbc, crc, qt, cv, fh=fh, fw=fw,
+                                          out_h=oh, out_w=ow))
+    assert _max_valid_diff(xla, out, dims) <= 1
+    py, pb, pr = (_pallas_canvas(a, m, n) for a, m, n in
+                  ((yc, 1, 1), (cbc, fh, fw), (crc, fh, fw)))
+    plan = pj.make_plan(len(dims), *py.shape[1:], fh, fw)
+    ref = np.asarray(pj.decode_420(py, pb, pr, plan, pj.make_args(plan, qt, cv),
+                                   interpret=True))
+    assert _max_valid_diff(ref, out, dims) <= 1
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+def test_aligned_operands(offset):
+    """B1's 16-byte loads need a 16-byte aligned base: a view that lacks
+    one is copied, an aligned contiguous tensor passes through as it is."""
+    base = torch.arange(64, dtype=torch.int16)
+    view = base[offset:offset + 32]
+    got = jpeg_kernels._aligned(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert torch.equal(got, view)
+    if view.data_ptr() % 16 == 0:
+        assert got.data_ptr() == view.data_ptr()
 
 
 def test_wrapper_on_cpu_counts_no_launch():
