@@ -37,9 +37,16 @@ Phases (any failure exits non-zero):
    share of it; the host clock times one group's tap tables (build and
    upload);
 7. B3      — the JPEG encode front half against its plain version: mixed
-   valid dims with pad rows (64x256, 384x512, 208x208) and
-   8 x 3072 x 4096 (limit: 1 quantization step inside each image's
-   ceil16(valid) grid);
+   valid dims with pad rows (64x256, 384x512, 208x208), the edges of its
+   64 x 256 tiling — one MCU at batch 1, one MCU column, one MCU row, a
+   16 x 528 canvas, valid dims of (1, 1), odd valid widths and heights,
+   extents that end inside the first MCU of a tile — strided views read
+   in place (row strides of 256 and of 200, the one ladder rung that is a
+   multiple of 8 but not of 16) and a view with a row stride of 204
+   (copied by the wrapper; the C entry point must refuse a misaligned
+   base or stride), then 8 x 3072 x 4096 (limit: 1 quantization step
+   inside each image's ceil16(valid) grid; each case prints its error
+   and the count of coefficients that differ);
 8. B4      — the single-op resample against its plain version: crop and
    aspect thumbnails, a downscale and an upscale resize (limit: 1 LSB);
 9. form plans — the seven plans of the upload form (thumbnail, resize,
@@ -331,16 +338,40 @@ def rgb_case(dims, h, w, seed, pad_to=0):
     return rgb, torch.from_numpy(vh).cuda()
 
 
-def coef_err(got, want, dims) -> int:
-    """Max quantization-step difference over each image's ceil16(valid)
-    grid of the three coefficient planes."""
-    err = 0
+def b3_cases() -> dict:
+    """tag -> (canvas h, w, valid dims, pad rows to, bucket) of phase 7:
+    mixed valid dims with pad rows, then the edges of B3's 64 x 256 tiling
+    (tests/test_torch_gpu.py b3_shapes). With a bucket (h, w) the canvas
+    is the top-left view of an allocation of that size."""
+    return {
+        "64x256": (64, 256, [(60, 250), (64, 256), (40, 130)], 4, None),
+        "384x512": (384, 512, [(380, 500), (384, 512), (200, 260)], 4, None),
+        "208x208": (208, 208, [(200, 200), (190, 196)], 4, None),
+        "mcu_b1": (16, 16, [(16, 16)], 0, None),
+        "mcu_col": (64, 16, [(61, 15), (64, 16)], 0, None),
+        "mcu_row": (16, 256, [(15, 250)], 0, None),
+        "w528": (16, 528, [(16, 528), (13, 517)], 0, None),
+        "valid_1x1": (64, 256, [(1, 1), (1, 1)], 0, None),
+        "odd_vw": (80, 528, [(80, 261), (64, 7), (34, 527)], 0, None),
+        "odd_vh": (80, 528, [(61, 272), (7, 256), (79, 512)], 0, None),
+        "tile_first_mcu": (128, 528, [(70, 260), (65, 257), (128, 270)], 0, None),
+        "view_aligned": (208, 208, [(200, 200), (190, 196), (1, 1)], 0, (224, 256)),
+        "view_stride200": (192, 192, [(192, 192), (180, 185)], 0, (200, 200)),
+        "view_stride204": (192, 192, [(192, 192), (180, 185)], 0, (200, 204)),
+    }
+
+
+def coef_err(got, want, dims) -> tuple[int, int]:
+    """(max quantization-step difference, count of coefficients that
+    differ) over each image's ceil16(valid) grid of the three coefficient
+    planes."""
+    err = count = 0
     for a, b, div in zip(got, want, (1, 2, 2)):
         for i, (h, w) in enumerate(dims):
             gh, gw = -(-h // 16) * 16 // div, -(-w // 16) * 16 // div
-            err = max(err, int((a[i, :gh, :gw].int() - b[i, :gh, :gw].int())
-                               .abs().max()))
-    return err
+            d = (a[i, :gh, :gw].int() - b[i, :gh, :gw].int()).abs()
+            err, count = max(err, int(d.max())), count + int((d > 0).sum())
+    return err, count
 
 
 def text_box(wm, text: str, position: str, h: int, w: int):
@@ -666,21 +697,43 @@ def main() -> int:
     # ---- 7. B3 vs plain
     qt85 = torch.from_numpy(quality_qtables(85).astype(np.float32)).cuda()
     b3_err = 0
-    for ch, cw, dims in ((64, 256, [(60, 250), (64, 256), (40, 130)]),
-                         (384, 512, [(380, 500), (384, 512), (200, 260)]),
-                         (208, 208, [(200, 200), (190, 196)])):
-        rgb, vh = rgb_case(dims, ch, cw, seed=ch + cw, pad_to=4)
+    errs = []
+    for tag, (ch, cw, dims, pad, bucket) in b3_cases().items():
+        bh, bw = bucket or (ch, cw)
+        rgb, vh = rgb_case(dims, bh, bw, seed=ch + cw, pad_to=pad)
+        rgb = rgb[:, :, :ch, :cw]
         got = jpeg_kernels.encode_420(rgb, vh, qt85)
         want = encode_420_plain(rgb, vh, qt85)
-        b3_err = max(b3_err, coef_err(got, want, dims + [(1, 1)] * (4 - len(dims))))
+        torch.cuda.synchronize()
+        err, n = coef_err(got, want, dims + [(1, 1)] * (pad - len(dims)))
+        errs.append(f"{tag} {err} ({n})")
+        b3_err = max(b3_err, err)
+        if err > STEP_LIMIT:
+            fail(f"B3 {tag}: {err} steps")
+    log("[7 B3] max |kernel - plain| steps (coefficients that differ) per "
+        "case: " + ", ".join(errs))
+    # the C entry point itself refuses what the wrapper would have copied
+    rgb, vh = rgb_case([(16, 16)], 16, 32, seed=1)
+    outs = [torch.empty(n, dtype=torch.int16, device="cuda") for n in (256, 64, 64)]
+    for what, off, s_row in (("base", 4, 32), ("row stride", 0, 36)):
+        rc = kernels.library().ip_encode_420(
+            rgb.data_ptr() + off, rgb.stride(0), rgb.stride(1), s_row,
+            vh.data_ptr(), qt85.data_ptr(), *(o.data_ptr() for o in outs), 1, 16,
+            16, kernels.stream_ptr(rgb.device))
+        if rc == 0:
+            fail(f"B3's C entry point took a misaligned {what}")
+    log("[7 B3] ip_encode_420 refuses a base and a row stride that are not "
+        "multiples of 8")
     big_vh = torch.from_numpy(src_hw.astype(np.int32)).cuda()
-    err = coef_err(jpeg_kernels.encode_420(src, big_vh, qt85),
-                   encode_420_plain(src, big_vh, qt85), src_hw.tolist())
+    err, n = coef_err(jpeg_kernels.encode_420(src, big_vh, qt85),
+                      encode_420_plain(src, big_vh, qt85), src_hw.tolist())
     b3_err = max(b3_err, err)
+    log(f"[7 B3] 8x3072x4096: max |kernel - plain| = {err} steps, {n} "
+        f"coefficients differ")
     if b3_err > STEP_LIMIT:
-        fail(f"B3 vs plain: {b3_err} steps")
-    log(f"[7 B3] 3 cases with pad rows + 8x3072x4096: max |kernel - plain| = "
-        f"{b3_err} steps (limit {STEP_LIMIT})")
+        fail(f"B3 8x3072x4096: {err} steps")
+    log(f"[7 B3] every case: max |kernel - plain| = {b3_err} steps "
+        f"(limit {STEP_LIMIT})")
 
     # ---- 8. B4 vs plain
     b4_err = 0
@@ -842,7 +895,7 @@ def main() -> int:
                 vh[:len(dims)] = dims
                 want = encode_420_plain(canvas, torch.from_numpy(vh).cuda(), qt85)
                 step = max(step, coef_err([torch.from_numpy(x) for x in outs[oi][1:4]],
-                                          [x.cpu() for x in want], dims))
+                                          [x.cpu() for x in want], dims)[0])
         return lsb, step
 
     form_launches = {"B3": 0, "B4": 0}

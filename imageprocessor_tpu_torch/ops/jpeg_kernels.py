@@ -24,10 +24,21 @@ encode_launches = 0
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous with a 16-byte aligned base (B1's 16-byte loads need
-    both): a view that is not is copied."""
+    """t contiguous with a 16-byte aligned base (the kernels' 16-byte
+    loads need both): a view that is not is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _aligned_rgb(rgb: torch.Tensor) -> torch.Tensor:
+    """rgb as B3 reads it in place: columns contiguous, and the base and
+    the image, channel and row strides multiples of 8 bytes (its 8-byte
+    loads need all of them). A view that is not — a bucket whose width is
+    not a multiple of 8 gives such a row stride — is copied."""
+    if (rgb.stride(3) == 1 and rgb.data_ptr() % 8 == 0
+            and all(rgb.stride(d) % 8 == 0 for d in range(3))):
+        return rgb
+    return rgb.clone(memory_format=torch.contiguous_format)
 
 
 def _check(yc, cbc, crc, qt, cv, fh: int, fw: int,
@@ -98,7 +109,8 @@ def _check_encode(rgb, valid_hw, qt) -> None:
 def encode_420(rgb: torch.Tensor, valid_hw: torch.Tensor, qt: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, 3, H, W) u8 planar RGB (H, W multiples of 16; a view whose
-    columns are contiguous is read in place), (B, 2) int32 valid dims and
+    columns are contiguous and whose base and strides are multiples of 8
+    is read in place, any other is copied), (B, 2) int32 valid dims and
     (2, 8, 8) float32 luma/chroma tables -> int16 4:2:0 coefficient
     canvases Y (B, H, W), Cb and Cr (B, H/2, W/2). Blocks past ceil16 of
     an image's valid extent are unspecified."""
@@ -108,9 +120,8 @@ def encode_420(rgb: torch.Tensor, valid_hw: torch.Tensor, qt: torch.Tensor
         return encode_420_plain(rgb, valid_hw, qt)
     if rgb.device.type != "cuda":
         raise ValueError(f"unsupported device {rgb.device}")
-    if rgb.stride(3) != 1:
-        rgb = rgb.contiguous()
-    valid_hw, qt = valid_hw.contiguous(), qt.contiguous()
+    rgb = _aligned_rgb(rgb)
+    valid_hw, qt = valid_hw.contiguous(), _aligned(qt)
     b, _, h, w = rgb.shape
     yc = torch.empty((b, h, w), dtype=torch.int16, device=rgb.device)
     cbc = torch.empty((b, h // 2, w // 2), dtype=torch.int16, device=rgb.device)

@@ -1,21 +1,31 @@
-"""Kernels B1-B4 on the card against their plain PyTorch versions.
+"""Kernels B1-B4 on the card against their plain PyTorch versions, and B1
+and B3 directly against the reference (the JAX package on CPU).
 
 These need a CUDA card and nvcc (the kernels have no CPU mode); without a
 card they skip. B1 runs every subsampling at the edges of its tiling and
-of its two store widths (``b1_shapes``). Run them on a GPU host with:
+of its two store widths (``b1_shapes``), B3 at the edges of its tiling
+and on strided views (``b3_shapes``). Run them on a GPU host with:
 
-    python -m pytest tests/test_torch_gpu.py -m gpu
+    python -m pytest tests/test_torch_gpu.py -m gpu -s
 
-Limits: B1 <= 1 LSB inside each valid region (IDCT summation order); B2
-and B4 exactly equal (same float32 operations in the same order); B3
-<= 1 quantization step inside each image's ceil16(valid) grid (FDCT
-summation order).
+Limits: B1 <= 1 LSB inside each valid region (IDCT summation order),
+against its plain version and against the reference's
+``batched_decode_ycbcr``; B2 and B4 exactly equal (same float32
+operations in the same order); B3 <= 1 quantization step inside each
+image's ceil16(valid) grid (FDCT summation order), against its plain
+version and against the reference's ``batched_encode_420``, and <= 1 step
+on at most 2 + n / 10000 coefficients of an n-coefficient plane against
+the float64 oracle ``encode_oracle`` (the bound that
+tests/test_torch_jpeg_encode.py holds the plain version to).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from imageprocessor_tpu.ops import jpeg_decode as ref_dec
+from imageprocessor_tpu.ops import jpeg_encode as ref_enc
+from imageprocessor_tpu.runtime.splice import _fdct_quantize_rect
 from imageprocessor_tpu_torch.ops import fused_resample as fr
 from imageprocessor_tpu_torch.ops import jpeg_kernels
 from imageprocessor_tpu_torch.ops import planar_resample as pr
@@ -74,6 +84,24 @@ def test_b1_matches_plain(cuda, fh, fw, shape):
         assert (got[i, :, :vh, :vw].int() - want[i, :, :vh, :vw].int()).abs().max() <= 1
 
 
+@pytest.mark.parametrize("shape", sorted(b1_shapes(2, 2)))
+@pytest.mark.parametrize("fh,fw", [(2, 2), (1, 2), (2, 1), (1, 1)])
+def test_b1_matches_reference(cuda, fh, fw, shape):
+    """B1 on the card against the reference's XLA decode on the CPU, the
+    same seeded coefficients: <= 1 LSB on each valid region (the two
+    links B1 -> plain -> reference are each <= 1 LSB; this holds their
+    sum to 1)."""
+    h, w, dims, out_hw = b1_shapes(fh, fw)[shape]
+    args = _coefs(dims, h, w, fh, fw, seed=fh * 10 + fw, device=cuda)
+    got = jpeg_kernels.decode_coefs(*args, fh, fw, out_hw).cpu().numpy()
+    want = np.asarray(ref_dec.batched_decode_ycbcr(
+        *(a.cpu().numpy() for a in args), fh=fh, fw=fw, out_h=out_hw[0],
+        out_w=out_hw[1]))
+    for i, (vh, vw) in enumerate(dims):
+        assert np.abs(got[i, :, :vh, :vw].astype(int)
+                      - want[i, :, :vh, :vw].astype(int)).max() <= 1
+
+
 def test_b2_matches_plain(cuda):
     rng = np.random.default_rng(2)
     src = torch.from_numpy(rng.integers(0, 256, (2, 3, 384, 512),
@@ -92,14 +120,84 @@ def test_b2_matches_plain(cuda):
     assert torch.equal(b, fr.resample_plain(src, resize))
 
 
-def test_b3_matches_plain(cuda):
-    rng = np.random.default_rng(3)
-    dims = [(200, 200), (190, 196), (1, 1)]
-    canvas = torch.from_numpy(rng.integers(0, 256, (3, 3, 224, 256),
-                                           dtype=np.uint8)).to(cuda)
-    rgb = canvas[:, :, :208, :208]   # a strided view, read in place
-    vh = torch.tensor(dims, dtype=torch.int32, device=cuda)
-    qt = torch.from_numpy(quality_qtables(85).astype(np.float32)).to(cuda)
+def b3_shapes() -> dict:
+    """(canvas h, w, valid dims, bucket) at the edges of B3's 64 x 256
+    tiling: the 200 rung on a 208 canvas; several tiles each way
+    (384 x 512); one MCU at batch 1; one MCU column; one MCU row; a canvas
+    wider than one tile and not a multiple of it (16 x 528); valid dims of
+    (1, 1); odd valid widths and odd valid heights; extents that end
+    inside the first MCU of a tile. With a
+    bucket (h, w) the canvas is the top-left view of an allocation of that
+    size: row strides of 256 and of 200 (the one ladder rung that is a
+    multiple of 8 but not of 16) are read in place, one of 204 is copied
+    by the wrapper."""
+    return {
+        "w200": (208, 208, [(200, 200), (190, 196)], None),
+        "384x512": (384, 512, [(380, 500), (384, 512), (200, 260)], None),
+        "mcu_b1": (16, 16, [(16, 16)], None),
+        "mcu_col": (64, 16, [(61, 15), (64, 16)], None),
+        "mcu_row": (16, 256, [(15, 250)], None),
+        "w528": (16, 528, [(16, 528), (13, 517)], None),
+        "valid_1x1": (64, 256, [(1, 1), (1, 1)], None),
+        "odd_vw": (80, 528, [(80, 261), (64, 7), (34, 527)], None),
+        "odd_vh": (80, 528, [(61, 272), (7, 256), (79, 512)], None),
+        "tile_first_mcu": (128, 528, [(70, 260), (65, 257), (128, 270)], None),
+        "view_aligned": (208, 208, [(200, 200), (190, 196), (1, 1)], (224, 256)),
+        "view_stride200": (192, 192, [(192, 192), (180, 185)], (200, 200)),
+        "view_stride204": (192, 192, [(192, 192), (180, 185)], (200, 204)),
+    }
+
+
+def coef_diffs(want, got, dims):
+    """Per (plane, image): |want - got| over the image's ceil16 grid."""
+    for a, b, div in zip(want, got, (1, 2, 2)):
+        for i, (h, w) in enumerate(dims):
+            gh, gw = -(-h // 16) * 16 // div, -(-w // 16) * 16 // div
+            yield (np.abs(a[i, :gh, :gw].astype(int) - b[i, :gh, :gw].astype(int)),
+                   gh * gw)
+
+
+def encode_oracle(rgb, dims, qt):
+    """Float64 encode front half of each image, edges replicated."""
+    out = [[], [], []]
+    for img, (h, w) in zip(rgb, dims):
+        hh, ww = img.shape[1:]
+        x = img.astype(np.float64)[:, np.minimum(np.arange(hh), h - 1)]
+        r, g, b = x[:, :, np.minimum(np.arange(ww), w - 1)]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
+        cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
+
+        def down2(p):
+            return p.reshape(hh // 2, 2, ww // 2, 2).mean(axis=(1, 3))
+
+        out[0].append(_fdct_quantize_rect(y, qt[0]))
+        out[1].append(_fdct_quantize_rect(down2(cb), qt[1]))
+        out[2].append(_fdct_quantize_rect(down2(cr), qt[1]))
+    return [np.stack(o) for o in out]
+
+
+def b3_case(shape, seed):
+    """A b3_shapes entry as numpy: the seeded bucket, the canvas dims
+    (h, w) of its top-left view, valid dims (B, 2) int32, the q85 tables,
+    and the valid dims as a list."""
+    h, w, dims, bucket = b3_shapes()[shape]
+    bh, bw = bucket or (h, w)
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (len(dims), 3, bh, bw), dtype=np.uint8), (h, w),
+            np.array(dims, np.int32), quality_qtables(85).astype(np.float32), dims)
+
+
+def _rgb(shape, seed, device):
+    """b3_case on ``device``, the canvas a view of its bucket."""
+    bucket, (h, w), vh, qt, dims = b3_case(shape, seed)
+    return (torch.from_numpy(bucket).to(device)[:, :, :h, :w],
+            torch.from_numpy(vh).to(device), torch.from_numpy(qt).to(device), dims)
+
+
+@pytest.mark.parametrize("shape", sorted(b3_shapes()))
+def test_b3_matches_plain(cuda, shape):
+    rgb, vh, qt, dims = _rgb(shape, 3, cuda)
     n = jpeg_kernels.encode_launches
     got = jpeg_kernels.encode_420(rgb, vh, qt)
     want = encode_420_plain(rgb, vh, qt)
@@ -109,6 +207,43 @@ def test_b3_matches_plain(cuda):
         for i, (h, wd) in enumerate(dims):
             gh, gw = -(-h // 16) * 16 // div, -(-wd // 16) * 16 // div
             assert (g[i, :gh, :gw].int() - w[i, :gh, :gw].int()).abs().max() <= 1
+
+
+@pytest.mark.parametrize("shape", sorted(b3_shapes()))
+def test_b3_matches_reference(cuda, shape):
+    """B3 on the card against the reference's XLA encode on the CPU
+    (<= 1 step) and against the float64 oracle (<= 1 step on at most
+    2 + n / 10000 coefficients per plane; the count is printed)."""
+    rgb, vh, qt, dims = _rgb(shape, 5, cuda)
+    got = [g.cpu().numpy() for g in jpeg_kernels.encode_420(rgb, vh, qt)]
+    rgb_np, vh_np, qt_np = rgb.cpu().numpy(), vh.cpu().numpy(), qt.cpu().numpy()
+    xla = [np.asarray(x) for x in ref_enc.batched_encode_420(rgb_np, vh_np, qt_np)]
+    for d, _ in coef_diffs(xla, got, dims):
+        assert d.max() <= 1
+    counts = []
+    for d, n in coef_diffs(encode_oracle(rgb_np, dims, qt_np), got, dims):
+        assert d.max() <= 1
+        assert (d > 0).sum() <= 2 + n // 10000
+        counts.append(int((d > 0).sum()))
+    print(f"B3 {shape} vs float64 oracle: coefficients that differ per "
+          f"(plane, image) {counts}")
+
+
+@pytest.mark.parametrize("what,offset,s_row", [("base", 4, 32), ("row", 0, 36)])
+def test_b3_entry_refuses_misaligned(cuda, what, offset, s_row):
+    """The C entry point refuses a base or a row stride that is not a
+    multiple of 8 (the wrapper copies such a view before it calls)."""
+    from imageprocessor_tpu_torch import kernels
+
+    rgb = torch.zeros((1, 3, 16, 32), dtype=torch.uint8, device=cuda)
+    vh = torch.tensor([[16, 16]], dtype=torch.int32, device=cuda)
+    qt = torch.ones((2, 8, 8), device=cuda)
+    outs = [torch.empty(n, dtype=torch.int16, device=cuda) for n in (256, 64, 64)]
+    rc = kernels.library().ip_encode_420(
+        rgb.data_ptr() + offset, rgb.stride(0), rgb.stride(1), s_row,
+        vh.data_ptr(), qt.data_ptr(), *(o.data_ptr() for o in outs), 1, 16, 16,
+        kernels.stream_ptr(cuda))
+    assert rc != 0
 
 
 def test_b4_matches_plain(cuda):
