@@ -63,7 +63,47 @@ Phases (any failure exits non-zero):
 10. timing — CUDA events at 8 x 3072 x 4096: B3 and B4 (resize to
    1024 x 768) and their plain versions, the blend, and the composed
    splice-off step B1 -> B2 -> blend -> B3; B3's and B4's bounds and
-   shares as in phase 6.
+   shares as in phase 6;
+11. transform plans — crop (an MCU-aligned origin and an unaligned one),
+   flip (both directions), rotate (90, 180, 270 and 30 degrees),
+   grayscale, and a mixed plan (thumbnail + resize + grayscale + crop)
+   through the worker's steps on phase 5's sources, with the splice on
+   (crop, flip and the rotations by 90s come from the scanned
+   coefficients on the host: no device work; rotate 30 and grayscale run
+   on the device) and with IMAGEPROCESSOR_JPEG_SPLICE=0 (everything on
+   the device), then a PNG source with every op. It checks every task
+   COMPLETED, the artifacts' dims (a crop clamped to its image, 90 and
+   270 swapped), the launch counts (B1 once per device group, B3 exactly
+   on the grayscale and flip groups, B2 on the mixed plan, none on an
+   all-coefficient plan) and the group's device outputs against numpy on
+   B1's decoded bucket: 0 LSB for crop, flip and the rotations by 90s
+   (slices, [::-1], np.rot90 on each valid region) and for grayscale
+   against the float32 formula of ops/extra.py evaluated by numpy
+   (<= 1 LSB against Go's integer formula in int64, whose differing
+   pixels are counted); rotate 30 within 1 LSB of a float64 inverse map,
+   except at pixels whose source coordinate lies within 1e-3 of the
+   +-0.5 validity boundary, which are counted and printed. B3's
+   canvases of a grayscale or flip group are within 1 step of the plain
+   encode of the same canvas. A coefficient-route artifact, decoded by
+   the float64 decoder of runtime/splice.py, equals the same transform
+   of the decoded source wherever the primitives are lossless (no
+   ``_rs``; a crop away from its edges);
+12. single image — process_single on one 12 MP JPEG with all seven ops:
+   B4 launches twice (resize, thumbnail), every artifact has the batched
+   path's dims and PSNR > 45 dB against it (the engine tests' contract
+   for JPEG artifacts; the two paths decode the source with different
+   IDCTs and encode with different encoders); a PNG source through both
+   paths with PNG renditions: crop, flip, rotate and grayscale equal,
+   the resamples and the watermark within 1 LSB;
+13. timing — CUDA events at 8 x 3072 x 4096: each batched op of
+   ops/extra.py and the composed grayscale step B1 -> grayscale -> B3;
+   the host clock of the coefficient route per 12 MP image, by op (scan,
+   transform, re-encode).
+
+B2's and B4's bounds are counted twice: by the bytes their taps touch,
+and by the 32-byte sectors those bytes lie in (the card's memory moves
+whole sectors; a bucket row is 4096 bytes, so a sector is col // 32).
+The sector count is the bound; the byte count is printed beside it.
 
 The watermark's font is the reference's lookup (IMAGEPROCESSOR_FONT, the
 reference package's assets/fonts, matplotlib's DejaVu Sans); where none
@@ -74,8 +114,8 @@ build/, and prints which.
 The line before the last is the card's name and power limit as
 nvidia-smi gives them, the one before it a JSON summary of the kernels
 (launches on the main path, max error, ms, plain_ms, bound_ms, bound_by,
-roofline_share, and library_ms: null, since no single PyTorch call
-computes any of the four functions); the last line is
+roofline_share, byte_bound_ms, and library_ms: null, since no single
+PyTorch call computes any of the four functions); the last line is
 {"ok": true, "device": {...}}. Only imageprocessor_tpu_torch
 is imported: neither jax nor the reference package imageprocessor_tpu.
 """
@@ -85,6 +125,7 @@ from __future__ import annotations
 import glob
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -102,6 +143,7 @@ B, H, W = 8, 3072, 4096          # the main path's 12 MP group
 LSB_LIMIT = 1
 STEP_LIMIT = 1                   # B3: quantization steps
 WM_MARGIN = 32                   # px past the text box a watermark may touch
+SINGLE_PSNR_DB = 45.0            # single-image vs batched JPEG artifacts (phase 12)
 HBM_BYTES_S = 3.35e12            # H100 SXM device memory, bytes/s (data sheet)
 FP32_FLOP_S = 67e12              # H100 SXM FP32 outside the tensor cores
 MODES = ((2, 2), (1, 2), (2, 1), (1, 1))   # 4:2:0, 4:2:2, 4:4:0, 4:4:4
@@ -159,10 +201,15 @@ def bound(nbytes: float, flop: float) -> dict:
 
 
 def bound_line(name: str, ms: float, b: dict) -> str:
-    return (f"{name} bound {b['ms']:.4f} ms, set by {b['by']} ({b['nbytes'] / 1e6:.1f} MB "
+    line = (f"{name} bound {b['ms']:.4f} ms, set by {b['by']} ({b['nbytes'] / 1e6:.1f} MB "
             f"at {HBM_BYTES_S / 1e12:.2f} TB/s; {b['flop'] / 1e9:.2f} GFLOP at "
             f"{FP32_FLOP_S / 1e12:.0f} TFLOP/s FP32); share of bound "
             f"{b['ms'] / ms:.3f}")
+    if "byte" in b:   # a resample: the sector count above, the byte count here
+        line += (f"; counted in 32-byte sectors. By touched bytes alone: "
+                 f"{b['byte']['ms']:.4f} ms ({b['byte']['nbytes'] / 1e6:.1f} MB), "
+                 f"share {b['byte']['ms'] / ms:.3f}")
+    return line
 
 
 def b1_bound(args, fh: int, fw: int, out_hw) -> dict:
@@ -197,23 +244,42 @@ def b3_bound(rgb, valid) -> dict:
 
 
 def resample_bound(taps_list) -> dict:
-    """B2 / B4: the source pixels that the taps of the outputs touch, each
-    read once (per image, the union of the outputs' row x column grids),
-    the tap tables, and every output written once; 11 operations per
-    output sample (three lerps, the xdraw quantization)."""
-    grids = [[(set(np.concatenate([t.r0[i].cpu().numpy(), t.r1[i].cpu().numpy()])),
-               set(np.concatenate([t.c0[i].cpu().numpy(), t.c1[i].cpu().numpy()])))
-              for i in range(t.r0.shape[0])] for t in taps_list]
-    touched = 0
-    for per_img in zip(*grids):
-        touched += sum(len(r) * len(c) for r, c in per_img)
-        if len(per_img) == 2:   # the two grids' intersection, counted once
-            (ra, ca), (rb, cb) = per_img
-            touched -= len(ra & rb) * len(ca & cb)
+    """B2 / B4: the source that the taps of the outputs touch, read once
+    (per image, the union of the outputs' row x column grids), the tap
+    tables, and every output written once; 11 operations per output
+    sample (three lerps, the xdraw quantization).
+
+    The source is counted in the 32-byte sectors the card's memory moves:
+    per touched row and plane, the distinct sectors its touched columns
+    lie in (a bucket row is 4096 bytes from an aligned base, so a
+    column's sector is col // 32). That is the bound. The count of the
+    touched bytes alone, which no kernel can fetch without their
+    sectors, is returned under "byte"."""
+    def grid(t, i):
+        return (set(np.concatenate([t.r0[i].cpu().numpy(), t.r1[i].cpu().numpy()]).tolist()),
+                set(np.concatenate([t.c0[i].cpu().numpy(), t.c1[i].cpu().numpy()]).tolist()))
+
+    touched = sectors = 0
+    for i in range(taps_list[0].r0.shape[0]):
+        grids = [grid(t, i) for t in taps_list]
+        # rows by the set of grids that touch them: such a row needs the
+        # union of those grids' columns
+        members: dict[int, int] = {}
+        for k, (rows, _cols) in enumerate(grids):
+            for r in rows:
+                members[r] = members.get(r, 0) | (1 << k)
+        for mask in set(members.values()):
+            n_rows = sum(1 for m in members.values() if m == mask)
+            cols = set().union(*(c for k, (_r, c) in enumerate(grids)
+                                 if mask >> k & 1))
+            touched += n_rows * len(cols)
+            sectors += n_rows * len({c // 32 for c in cols})
     outs = sum(3 * t.r0.shape[0] * t.shape[0] * t.shape[1] for t in taps_list)
     tables = sum(x.numel() * x.element_size() for t in taps_list
                  for x in (t.r0, t.r1, t.fy, t.c0, t.c1, t.fx))
-    return bound(3.0 * touched + outs + tables, 11.0 * outs)
+    b = bound(3.0 * 32 * sectors + outs + tables, 11.0 * outs)
+    b["byte"] = bound(3.0 * touched + outs + tables, 11.0 * outs)
+    return b
 
 
 def b1_cases(fh: int, fw: int) -> dict:
@@ -408,17 +474,20 @@ def main() -> int:
         step_taps,
     )
     from imageprocessor_tpu_torch.models.plan import normalize_operations
+    from imageprocessor_tpu_torch.ops import extra
     from imageprocessor_tpu_torch.ops import fused_resample as fr
     from imageprocessor_tpu_torch.ops import jpeg_kernels
     from imageprocessor_tpu_torch.ops import planar_resample as pr
     from imageprocessor_tpu_torch.ops import watermark as wm
-    from imageprocessor_tpu_torch.ops.coords import keep_aspect_dims
+    from imageprocessor_tpu_torch.ops.coords import center_crop_rect, keep_aspect_dims
     from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
     from imageprocessor_tpu_torch.ops.jpeg_encode import (
         encode_420_plain,
         quality_qtables,
     )
-    from imageprocessor_tpu_torch.runtime import hostcodec
+    from imageprocessor_tpu_torch.ops.resize import resize_image
+    from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
+    from imageprocessor_tpu_torch.runtime import coeftx, hostcodec, splice
     from imageprocessor_tpu_torch.runtime.batcher import (
         BatchItem,
         coef_factors,
@@ -817,15 +886,17 @@ def main() -> int:
     def stage_line() -> str:
         """The engine's stage metrics of the last worker_steps call: the
         largest group's device and finish (encode, emit, splice, save)
-        stages, and the splice emit per image."""
+        stages, and the splice and coefficient-transform emits per image."""
         snap = METRICS.snapshot()
         t = snap["timings"]
         parts = [f"{k[7:]} max {t[k]['max']:.1f}" for k in (
             "engine_decode_ms", "engine_device_ms", "engine_encode_ms") if k in t]
-        if "engine_splice_emit_ms" in t:
-            parts.append(f"splice_emit_ms p50 {t['engine_splice_emit_ms']['p50']:.2f}")
+        for k in ("engine_splice_emit_ms", "engine_coeftx_emit_ms"):
+            if k in t:
+                parts.append(f"{k[7:]} p50 {t[k]['p50']:.2f} max {t[k]['max']:.2f}")
         n = int(snap["counters"].get("engine_splice_images", 0))
-        return "; ".join(parts) + f"; spliced {n}"
+        m = int(snap["counters"].get("engine_coeftx_images", 0))
+        return "; ".join(parts) + f"; spliced {n}; from coefficients {m}"
 
     def artifact_px(res, op):
         return decode_image(store.get_object(res.result.processed_paths[op]))[0]
@@ -849,18 +920,23 @@ def main() -> int:
         if (got != twin)[outside].any():
             fail(f"{what}: pixels changed outside the text box")
 
+    def plan_groups(plan, fmt="jpeg"):
+        """Phase 5's sources decoded for a plan and grouped, as
+        process_tasks does; fmt is the renditions' format."""
+        items = []
+        for k, blob in enumerate(blobs):
+            arr, _f, layout, hw, sctx = engine.decode_for_plan_ex(blob, plan, fmt)
+            items.append(BatchItem(item_id=str(k), image=arr, plan_key=plan.group_key(),
+                                   payload=(k, None, fmt, plan), layout=layout,
+                                   valid_hw=hw, splice=sctx))
+        return group_items(items, max_batch=B)
+
     def plain_group_check(ops):
         """Group outputs of a plan vs the plain versions on the plain
         decode: resamples <= 1 LSB, B3 canvases <= 1 step."""
         plan = normalize_operations(ops)
-        items = []
-        for k, blob in enumerate(blobs):
-            arr, _f, layout, hw, sctx = engine.decode_for_plan_ex(blob, plan, "jpeg")
-            items.append(BatchItem(item_id=str(k), image=arr, plan_key=plan.group_key(),
-                                   payload=(k, None, "jpeg", plan), layout=layout,
-                                   valid_hw=hw, splice=sctx))
         lsb = step = 0
-        for group in group_items(items, max_batch=B):
+        for group in plan_groups(plan):
             _, outs, out_hws, _ = engine.device_group(group)
             packed, ghw = group.pack(pad_batch_to=quantize_batch(len(group.items)))
             fh, fw = coef_factors(group.layout)
@@ -998,7 +1074,436 @@ def main() -> int:
     log(f"[10 timing] {card}: {bound_line('B3', b3_ms, b3_b)}")
     log(f"[10 timing] {card}: {bound_line('B4', b4_ms, b4_b)}")
 
-    def row(name, source, replaces, launched, err, ms, plain, b):
+    # ---- 11. crop, flip, rotate and grayscale plans through the worker's steps
+    def op_of(kind, **params):
+        return OperationParams(OperationType(kind), params)
+
+    crop_a = op_of("crop", x=512, y=256, width=1024, height=768)   # MCU-aligned origin
+    crop_u = op_of("crop", x=301, y=203, width=1500, height=1100)
+    tx_plans = {
+        "crop_aligned": [crop_a], "crop_unaligned": [crop_u],
+        "flip_h": [op_of("flip", direction="horizontal")],
+        "flip_v": [op_of("flip", direction="vertical")],
+        "rot90": [op_of("rotate", angle=90)], "rot180": [op_of("rotate", angle=180)],
+        "rot270": [op_of("rotate", angle=270)], "rot30": [op_of("rotate", angle=30)],
+        "grayscale": [op_of("grayscale")],
+        "mixed": [thumb, resize, op_of("grayscale"), crop_u],
+    }
+    # plans the coefficient domain serves when source and renditions are JPEGs
+    coef_plans = {"crop_aligned", "crop_unaligned", "flip_h", "flip_v", "rot90",
+                  "rot180", "rot270"}
+    b3_plans = {"flip_h", "flip_v", "grayscale", "mixed"}   # a full-bucket JPEG output
+
+    def out_dims(o, h, w):
+        """Valid (h, w) of a normalized op's output on an h x w image."""
+        kind = o.type.value
+        if kind == "crop":
+            x, y = min(o.x, w - 1), min(o.y, h - 1)
+            return max(1, min(o.height, h - y)), max(1, min(o.width, w - x))
+        if kind == "rotate" and o.angle % 180.0 == 90.0:
+            return w, h
+        if kind == "thumbnail":
+            return o.size, o.size
+        if kind == "resize":
+            return keep_aspect_dims(w, h, o.width, o.height)[::-1]
+        return h, w
+
+    def check_tx_dims(res, plan, h, w, what):
+        for o in plan.ops:
+            data = store.get_object(res.result.processed_paths[o.type.value])
+            if data[:2] == b"\xff\xd8":
+                got = tuple(hostcodec.scan_jpeg_coefficients(data)[2])[::-1]
+            else:
+                got = decode_image(data)[0].shape[:2]
+            if tuple(got) != tuple(out_dims(o, h, w)):
+                fail(f"{what} {o.type.value}: artifact {got} != {out_dims(o, h, w)}")
+
+    def gray_f32(rgb):
+        """ops/extra.py's float32 luma, evaluated by numpy on (3, h, w)."""
+        f = np.float32
+        r, g, b = (c.astype(f) * f(257.0) for c in rgb)
+        y16 = (f(299.0) * r + f(587.0) * g + f(114.0) * b + f(500.0)) * f(0.001)
+        return np.clip(np.floor(np.floor(y16) / f(256.0)), 0, 255).astype(np.uint8)
+
+    def gray_go(rgb):
+        """Go's color.GrayModel on 16-bit channels, int64, on (3, h, w)."""
+        x = rgb.astype(np.int64) * 257
+        return (((299 * x[0] + 587 * x[1] + 114 * x[2] + 500) // 1000) >> 8).astype(np.uint8)
+
+    def rotate_f64(img, h, w, angle, eps=1e-3):
+        """Float64 inverse-mapped bilinear rotation of the (h, w) image in
+        the top-left of a (3, Hc, Wc) u8 canvas about its centre, on the
+        card: (expected u8 canvas, mask of pixels whose source coordinate
+        lies within eps of the validity boundary)."""
+        f64 = torch.float64
+        th = math.radians(angle)
+        c, s = math.cos(th), math.sin(th)
+        cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+        dy = torch.arange(img.shape[1], dtype=f64, device=img.device)[:, None] - cy
+        dx = torch.arange(img.shape[2], dtype=f64, device=img.device)[None, :] - cx
+        sx, sy = c * dx - s * dy + cx, s * dx + c * dy + cy
+        near = (((sx + 0.5).abs() < eps) | ((sx - (w - 0.5)).abs() < eps)
+                | ((sy + 0.5).abs() < eps) | ((sy - (h - 0.5)).abs() < eps))
+        valid = (sx >= -0.5) & (sx <= w - 0.5) & (sy >= -0.5) & (sy <= h - 0.5)
+        x0, y0 = torch.floor(sx), torch.floor(sy)
+        fx, fy = sx - x0, sy - y0
+        x0, y0 = x0.long(), y0.long()
+
+        def g(yi, xi):
+            return img[:, yi.clamp(0, h - 1), xi.clamp(0, w - 1)].to(f64)
+
+        top = g(y0, x0) * (1 - fx) + g(y0, x0 + 1) * fx
+        bot = g(y0 + 1, x0) * (1 - fx) + g(y0 + 1, x0 + 1) * fx
+        out = torch.where(valid, top * (1 - fy) + bot * fy, torch.zeros((), dtype=f64,
+                                                                      device=img.device))
+        return out.round().clamp(0, 255).to(torch.uint8), near
+
+    def tx_group_check(ops):
+        """A plan's device outputs against numpy on B1's decoded bucket,
+        per group of phase 5's sources. The items ask for PNG renditions,
+        so every output comes back as pixels. Returns (max LSB of crop /
+        flip / rotate by 90s / grayscale against numpy, max LSB of
+        rotate 30 off the boundary pixels, boundary pixels, grayscale
+        pixels that differ from Go's integers, grayscale pixels)."""
+        plan = normalize_operations(ops)
+        exact = rot = near_n = go_n = gray_n = 0
+        for group in plan_groups(plan, "png"):
+            if not group.layout.startswith("coef"):
+                fail(f"plan {ops}: a JPEG source took layout {group.layout}")
+            _, outs, out_hws, _ = engine.device_group(group)
+            dec_t, _ = engine._upload(group, quantize_batch(len(group.items)))
+            dec = dec_t.cpu().numpy()
+            for oi, o in enumerate(plan.ops):
+                kind = o.type.value
+                if kind in ("thumbnail", "resize"):
+                    continue   # held against the plain versions in phase 9
+                for i, it in enumerate(group.items):
+                    h, w = it.hw
+                    oh, ow = out_dims(o, h, w)
+                    if oi in out_hws and tuple(out_hws[oi][i]) != (oh, ow):
+                        fail(f"{kind}: out_hws {out_hws[oi][i]} != {(oh, ow)}")
+                    got = outs[oi][i][:, :oh, :ow]
+                    src_i = dec[i][:, :h, :w]
+                    if kind == "rotate" and o.angle % 90.0:
+                        want, near = rotate_f64(dec_t[i], h, w, o.angle)
+                        near = near[:h, :w].cpu().numpy()
+                        d = np.abs(got.astype(np.int16)
+                                   - want[:, :h, :w].cpu().numpy().astype(np.int16)).max(axis=0)
+                        rot = max(rot, int(d[~near].max()))
+                        near_n += int(near.sum())
+                        continue
+                    if kind == "crop":
+                        x, y = min(o.x, w - 1), min(o.y, h - 1)
+                        want = src_i[:, y:y + oh, x:x + ow]
+                    elif kind == "flip":
+                        want = (src_i[:, ::-1] if o.direction == "vertical"
+                                else src_i[:, :, ::-1])
+                    elif kind == "rotate":
+                        want = np.rot90(src_i, int(o.angle // 90), axes=(1, 2))
+                    else:   # grayscale
+                        want = np.repeat(gray_f32(src_i)[None], 3, axis=0)
+                        go_n += int((got[0] != gray_go(src_i)).sum())
+                        gray_n += h * w
+                        if np.abs(got[0].astype(np.int16)
+                                  - gray_go(src_i).astype(np.int16)).max() > LSB_LIMIT:
+                            fail("grayscale: more than 1 LSB from Go's integer formula")
+                    if got.shape != want.shape:
+                        fail(f"{kind}: output {got.shape} != {want.shape}")
+                    exact = max(exact, int(np.abs(got.astype(np.int16)
+                                                  - want.astype(np.int16)).max()))
+        return exact, rot, near_n, go_n, gray_n
+
+    def b3_group_check(ops):
+        """B3's canvases of a plan's full-bucket JPEG outputs (grayscale,
+        flip) against the plain encode of the same canvas, in steps."""
+        plan = normalize_operations(ops)
+        step = 0
+        for group in plan_groups(plan):
+            _, outs, _, _ = engine.device_group(group)
+            dec_t, ghw = engine._upload(group, quantize_batch(len(group.items)))
+            dims = [it.hw for it in group.items]
+            for oi, o in enumerate(plan.ops):
+                if o.type.value not in ("grayscale", "flip"):
+                    continue
+                if outs[oi][0] != "coef420":
+                    fail(f"plan {ops}: {o.type.value} not encoded by B3")
+                canvas = (extra.batched_grayscale_planar(dec_t)
+                          if o.type.value == "grayscale"
+                          else extra.batched_flip(dec_t, ghw, o.direction))
+                mh = -(-max(h for h, _ in dims) // 16) * 16
+                mw = -(-max(w for _, w in dims) // 16) * 16
+                canvas = torch.nn.functional.pad(
+                    canvas[:, :, :mh, :mw], (0, max(mw - canvas.shape[3], 0),
+                                             0, max(mh - canvas.shape[2], 0)))
+                vh = np.ones((canvas.shape[0], 2), np.int32)
+                vh[:len(dims)] = dims
+                want = encode_420_plain(canvas, torch.from_numpy(vh).cuda(), qt85)
+                step = max(step, coef_err([torch.from_numpy(x) for x in outs[oi][1:4]],
+                                          [x.cpu() for x in want], dims)[0])
+        return step
+
+    pixel_tx = {
+        "crop_aligned": lambda a: a[256:256 + 768, 512:512 + 1024],
+        "flip_h": lambda a: a[:, ::-1], "flip_v": lambda a: a[::-1],
+        "rot90": lambda a: np.rot90(a, 1), "rot180": lambda a: np.rot90(a, 2),
+        "rot270": lambda a: np.rot90(a, 3),
+    }
+    src_rgb: dict[int, np.ndarray] = {}   # source index -> float64-decoded pixels
+
+    def lossless_check(name, pairs) -> int:
+        """Coefficient-route artifacts of one plan, decoded by the float64
+        decoder of runtime/splice.py, against the same transform of the
+        decoded source, wherever every primitive is lossless. One 12 MP
+        source and the three small ones. Returns how many were held."""
+        o = normalize_operations(tx_plans[name]).ops[0]
+        held = 0
+        for k in (0, 8, 9, 10):
+            planes, qt, size, samp = hostcodec.scan_jpeg_coefficients(blobs[k])
+            mcu_w, mcu_h = 8 * samp[0][0], 8 * samp[0][1]
+            prims = coeftx.eligible_prims(o, size, samp)
+            if prims is None or any(
+                    pr.endswith("_rs") if isinstance(pr, str)
+                    else (pr[1] % mcu_w or pr[2] % mcu_h) for pr in prims):
+                continue
+            if name not in pixel_tx:
+                continue
+            if k not in src_rgb:
+                src_rgb[k] = splice.decode_rgb(splice.coef_context(planes, qt, size, samp))
+            data = store.get_object(pairs[k][1].result.processed_paths[o.type.value])
+            got = splice.decode_rgb(splice.coef_context(
+                *hostcodec.scan_jpeg_coefficients(data)))
+            want = pixel_tx[name](src_rgb[k])
+            if name == "crop_aligned":
+                h, w = src_rgb[k].shape[:2]
+                oh, ow = out_dims(o, h, w)
+                want = want[:oh, :ow]
+                # the chroma upsample clamps at the new plane's edges
+                got, want = got[2:-2, 2:-2], want[2:-2, 2:-2]
+            if not np.array_equal(got, want):
+                fail(f"{name} source {k}: coefficient-route artifact differs "
+                     f"from the transform of the decoded source")
+            held += 1
+        return held
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
+    store = LocalFSObjectStore(os.path.join(workdir, "objects"))
+    meta = SQLiteMetadataStore(os.path.join(workdir, "meta.db"))
+    broker = MemoryBroker()
+    broker.create_topic(KAFKA_TOPIC_PROCESSING, 3)
+    engine = TorchProcessingEngine(store, device="cuda", batch_size=B)
+    tx_launches = dict.fromkeys(counters, 0)
+    single_launches = dict.fromkeys(counters, 0)
+    n_jpeg = len(blobs)
+    try:
+        for splice_on in (True, False):
+            os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "1" if splice_on else "0"
+            mode = "splice on" if splice_on else "splice off"
+            for pname, ops in tx_plans.items():
+                plan = normalize_operations(ops)
+                pairs, counts, wall = worker_steps(blobs, ops)
+                stages = stage_line()
+                snap = METRICS.snapshot()
+                n_coef = int(snap["counters"].get("engine_coeftx_images", 0))
+                dev = snap["timings"]["engine_device_ms"]
+                from_coefs = splice_on and pname in coef_plans
+                if from_coefs:
+                    ok = (not any(counts.values()) and dev["max"] == 0.0
+                          and n_coef == n_jpeg)
+                else:
+                    ok = (counts["B1"] == dev["count"] and counts["B1"] >= 1
+                          and counts["B4"] == 0 and n_coef == 0
+                          and counts["B2"] == (counts["B1"] if pname == "mixed" else 0)
+                          and counts["B3"] == (counts["B1"] if pname in b3_plans else 0))
+                if not ok:
+                    fail(f"plan {pname} ({mode}): launches {counts}, device stage "
+                         f"{dev}, from coefficients {n_coef}")
+                for k in counts:
+                    tx_launches[k] += counts[k]
+                for k, (_task, res) in enumerate(pairs):
+                    _, h, w = sources[k][0].shape
+                    check_tx_dims(res, plan, h, w, f"plan {pname} ({mode}) #{k}")
+                held = lossless_check(pname, pairs) if from_coefs else 0
+                log(f"[11 transform] plan {pname:>14} ({mode}): {len(pairs)} tasks "
+                    f"COMPLETED in {wall:.3f} s (host clock); launches {counts}; "
+                    f"ms: {stages}"
+                    + (f"; {held} lossless artifacts equal the transform of the "
+                       f"decoded source" if from_coefs else ""))
+        # still with the splice off: the group checks below run every plan
+        # on the device
+        tx_exact = tx_rot = tx_step = 0
+        for pname, ops in tx_plans.items():
+            exact, rot, near_n, go_n, gray_n = tx_group_check(ops)
+            tx_exact, tx_rot = max(tx_exact, exact), max(tx_rot, rot)
+            note = ""
+            if pname == "rot30":
+                note = (f"; rotate 30 vs float64 inverse map {rot} LSB off "
+                        f"{near_n} boundary pixels")
+            if gray_n:
+                note += (f"; grayscale differs from Go's integers at {go_n} of "
+                         f"{gray_n} pixels (by 1 LSB)")
+            if pname in ("flip_h", "flip_v", "grayscale"):
+                step = b3_group_check(ops)
+                tx_step = max(tx_step, step)
+                note += f"; B3 canvases vs plain encode {step} steps"
+            log(f"[11 transform] plan {pname:>14}: device outputs vs numpy on B1's "
+                f"bucket {exact} LSB{note}")
+        if tx_exact > 0 or tx_rot > LSB_LIMIT or tx_step > STEP_LIMIT:
+            fail(f"transform outputs: {tx_exact} LSB (limit 0), rotate 30 {tx_rot} "
+                 f"LSB (limit {LSB_LIMIT}), B3 {tx_step} steps (limit {STEP_LIMIT})")
+
+        os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "1"
+        # a PNG source with every op: the pixel path, PNG renditions
+        every = [thumb, resize, mark(), crop_u, op_of("rotate", angle=90),
+                 op_of("flip", direction="horizontal"), op_of("grayscale")]
+        png_img = photo(480, 640, 31).transpose(1, 2, 0)
+        bio = io.BytesIO()
+        PILImage.fromarray(png_img).save(bio, format="PNG")
+        png_blob = bio.getvalue()
+        [(_, res)], counts, _ = worker_steps([png_blob], every, "png")
+        if counts != {"B1": 0, "B2": 1, "B3": 0, "B4": 0}:
+            fail(f"PNG source, every op: launches {counts}")
+        for k in counts:
+            tx_launches[k] += counts[k]
+        check_tx_dims(res, normalize_operations(every), 480, 640, "PNG source")
+        chw = png_img.transpose(2, 0, 1)
+        for kind, want in (("crop", png_img[203:, 301:]), ("rotate", np.rot90(png_img, 1)),
+                           ("flip", png_img[:, ::-1]),
+                           ("grayscale", np.repeat(gray_f32(chw)[..., None], 3, axis=2))):
+            if not np.array_equal(artifact_px(res, kind), want):
+                fail(f"PNG source: {kind} artifact differs from numpy")
+        log(f"[11 transform] PNG 640x480 source, all seven ops: COMPLETED, crop, "
+            f"rotate 90, flip and grayscale artifacts equal numpy; launches {counts}")
+
+        # ---- 12. the single-image path
+        os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "0"
+        task = ProcessingTask(id=str(uuid.uuid4()), image_id=str(uuid.uuid4()),
+                              original_path="single", bucket="images",
+                              operations=every, format="jpeg")
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.monotonic()
+        one = engine.process_single(task, blobs[0])
+        wall = time.monotonic() - t0
+        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        if one.result.status is not ImageStatus.COMPLETED:
+            fail(f"process_single: {one.result.error}")
+        if counts != {"B1": 0, "B2": 0, "B3": 0, "B4": 2}:
+            fail(f"process_single: launches {counts}")
+        for k in counts:
+            single_launches[k] += counts[k]
+        # B4 against its plain version on the tensors this path gives it:
+        # one unpadded 3000x4000 image (row stride 4000, batch 1), the
+        # keep-aspect resize and the crop thumbnail's centre window. The
+        # ops' own outputs on the card equal the kernel's on these taps, so
+        # the taps are the path's.
+        sh, sw = src_px[0].shape[:2]
+        img_hwc = torch.from_numpy(np.ascontiguousarray(src_px[0])).cuda()
+        img = img_hwc.permute(2, 0, 1)[None].contiguous()
+        s_plan = normalize_operations(every)
+        t_op = next(o for o in s_plan.ops if o.type is OperationType.THUMBNAIL)
+        r_op = next(o for o in s_plan.ops if o.type is OperationType.RESIZE)
+        rw, rh = keep_aspect_dims(sw, sh, r_op.width, r_op.height)
+        cx, cy, side = center_crop_rect(sw, sh)
+        single_lsb = 0
+        for out_hw, window, via_op in (
+                ((rh, rw), (), resize_image(img_hwc, r_op.width, r_op.height,
+                                            r_op.keep_aspect)),
+                ((t_op.size, t_op.size),
+                 (np.array([[cy, cx]]), np.array([[side, side]])),
+                 thumbnail_image(img_hwc, t_op.size, t_op.crop_to_fit))):
+            taps = fr.make_taps(np.array([[sh, sw]]), np.array([out_hw]), out_hw,
+                                (sh, sw), *window).to("cuda")
+            got = pr.planar_resample(img, taps)
+            if not torch.equal(got[0].permute(1, 2, 0), via_op):
+                fail(f"process_single: B4 on the rebuilt taps for {out_hw} differs "
+                     f"from the single-image op's output")
+            single_lsb = max(single_lsb,
+                             max_err(got, fr.resample_plain(img, taps), [out_hw]))
+        if single_lsb > LSB_LIMIT:
+            fail(f"process_single: B4 vs plain on 1x3x{sh}x{sw}: {single_lsb} LSB")
+        log(f"[12 single] B4 on the single-image tensors (1x3x{sh}x{sw}, resize to "
+            f"{rw}x{rh}, crop thumbnail {t_op.size}x{t_op.size}): max |kernel - "
+            f"plain| = {single_lsb} LSB (limit {LSB_LIMIT})")
+        [(_, many)], _, _ = worker_steps([blobs[0]], every)
+        check_tx_dims(one, normalize_operations(every), 3000, 4000, "process_single")
+        psnrs = {}
+        for kind in one.result.processed_paths:
+            a, b = artifact_px(one, kind), artifact_px(many, kind)
+            if a.shape != b.shape:
+                fail(f"process_single {kind}: {a.shape} != batched {b.shape}")
+            psnrs[kind] = oracle.psnr(a, b)
+        log(f"[12 single] process_single, one 3000x4000 JPEG, all seven ops: "
+            f"COMPLETED in {wall:.3f} s (host clock); launches {counts}; PSNR "
+            f"against the batched path's artifacts (splice off): "
+            + ", ".join(f"{k} {v:.2f} dB" for k, v in sorted(psnrs.items())))
+        if min(psnrs.values()) <= SINGLE_PSNR_DB:
+            fail(f"process_single vs batched: PSNR {psnrs}")
+        os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "1"
+        task = ProcessingTask(id=str(uuid.uuid4()), image_id=str(uuid.uuid4()),
+                              original_path="single.png", bucket="images",
+                              operations=every, format="png")
+        one = engine.process_single(task, png_blob)
+        if one.result.status is not ImageStatus.COMPLETED:
+            fail(f"process_single (PNG): {one.result.error}")
+        lsb = {}
+        for kind in one.result.processed_paths:
+            a, b = artifact_px(one, kind), artifact_px(res, kind)
+            if a.shape != b.shape:
+                fail(f"process_single (PNG) {kind}: {a.shape} != batched {b.shape}")
+            lsb[kind] = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+        log(f"[12 single] PNG 640x480 source, PNG renditions, single vs batched "
+            f"path, max LSB: {lsb}")
+        if (any(lsb[k] for k in ("crop", "rotate", "flip", "grayscale"))
+                or max(lsb.values()) > LSB_LIMIT):
+            fail(f"process_single (PNG) vs batched: {lsb}")
+    finally:
+        os.environ.pop("IMAGEPROCESSOR_JPEG_SPLICE", None)
+        engine.close()
+        meta.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- 13. timing of the new ops at 8 x 3072 x 4096, and the host clock
+    # of the coefficient route
+    tx_hw = np.array([[3000, 4000]] * 6 + [[1080, 1920], [480, 640]], np.int32)
+    c = normalize_operations([crop_u]).ops[0]
+    op_ms = {
+        "grayscale": time_ms(lambda: extra.batched_grayscale_planar(src), iters=10),
+        "flip_h": time_ms(lambda: extra.batched_flip(src, tx_hw, "horizontal"), iters=10),
+        "flip_v": time_ms(lambda: extra.batched_flip(src, tx_hw, "vertical"), iters=10),
+        "crop 1500x1100": time_ms(lambda: extra.batched_crop(
+            src, tx_hw, c.x, c.y, width=c.width, height=c.height), iters=10),
+        "rotate 90": time_ms(lambda: extra.batched_rotate(src, tx_hw, 90.0), iters=10),
+        "rotate 180": time_ms(lambda: extra.batched_rotate(src, tx_hw, 180.0), iters=10),
+        "rotate 270": time_ms(lambda: extra.batched_rotate(src, tx_hw, 270.0), iters=10),
+        "rotate 30": time_ms(lambda: extra.batched_rotate(src, tx_hw, 30.0), iters=3,
+                             warmup=1),
+    }
+    gray_step = time_ms(lambda: jpeg_kernels.encode_420(
+        extra.batched_grayscale_planar(jpeg_kernels.decode_coefs(*big, 2, 2, (H, W))),
+        big_vh, qt85), iters=10)
+    log(f"[13 timing] {card}: ops/extra.py per 8x3072x4096 batch (CUDA events): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in op_ms.items())
+        + f"; grayscale step B1 -> grayscale -> B3 {gray_step:.4f} ms = "
+        f"{B * 1000.0 / gray_step:.1f} images/s")
+    t0 = time.perf_counter()
+    scanned = hostcodec.scan_jpeg_coefficients(blobs[0])
+    ctx = splice.coef_context(*scanned)
+    parts = [f"scan {(time.perf_counter() - t0) * 1000.0:.1f} ms"]
+    for pname in sorted(coef_plans):
+        o = normalize_operations(tx_plans[pname]).ops[0]
+        prims = coeftx.eligible_prims(o, ctx.size, ctx.sampling)
+        t0 = time.perf_counter()
+        out = coeftx.apply(ctx, prims)
+        t1 = time.perf_counter()
+        splice.reencode(out)
+        t2 = time.perf_counter()
+        prim_s = "+".join(pr if isinstance(pr, str) else pr[0] for pr in prims)
+        parts.append(f"{pname} [{prim_s}] transform {(t1 - t0) * 1000.0:.1f} ms, "
+                     f"re-encode {(t2 - t1) * 1000.0:.1f} ms")
+    log(f"[13 timing] {card}: coefficient route on the host, one 3000x4000 4:2:0 "
+        f"JPEG, one thread (host clock): " + "; ".join(parts))
+
+    def row(name, key, source, replaces, phase, launched, err, ms, plain, b):
         # library_ms: no single PyTorch call computes any of the four:
         # torch has no 8x8 DCT (B1, B3), and interpolate takes one output
         # size for the whole batch, where B2 / B4 resample per-image
@@ -1006,19 +1511,23 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"imageprocessor_tpu_torch/csrc/{source}",
                 "replaces": f"imageprocessor_tpu/ops/{replaces}",
-                "launches": launched, "max_abs_err": err, "ms": ms,
+                "launches": launched + tx_launches[key] + single_launches[key],
+                "launches_by_phase": {phase: launched, "11": tx_launches[key],
+                                      "12": single_launches[key]},
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
-                "roofline_share": b["ms"] / ms, "library_ms": None}
+                "roofline_share": b["ms"] / ms,
+                "byte_bound_ms": b.get("byte", b)["ms"], "library_ms": None}
 
     summary = {"kernels": [
-        row("jpeg_decode_b1", "jpeg_decode.cu", "pallas_jpeg.py:548",
-            launches["B1"], max(b1_err, main_err), b1_ms, b1_plain, b1_b),
-        row("fused_resample_b2", "fused_resample.cu", "pallas_fused.py:591",
-            launches["B2"], max(b2_err, main_err), b2_ms, b2_plain, b2_b),
-        row("jpeg_encode_b3", "jpeg_encode.cu", "pallas_jpeg.py:932",
-            form_launches["B3"], max(b3_err, form_step), b3_ms, b3_plain, b3_b),
-        row("planar_resample_b4", "planar_resample.cu", "pallas_resample.py:341",
-            form_launches["B4"], max(b4_err, form_lsb), b4_ms, b4_plain, b4_b),
+        row("jpeg_decode_b1", "B1", "jpeg_decode.cu", "pallas_jpeg.py:548",
+            "5", launches["B1"], max(b1_err, main_err), b1_ms, b1_plain, b1_b),
+        row("fused_resample_b2", "B2", "fused_resample.cu", "pallas_fused.py:591",
+            "5", launches["B2"], max(b2_err, main_err), b2_ms, b2_plain, b2_b),
+        row("jpeg_encode_b3", "B3", "jpeg_encode.cu", "pallas_jpeg.py:932",
+            "9", form_launches["B3"], max(b3_err, form_step), b3_ms, b3_plain, b3_b),
+        row("planar_resample_b4", "B4", "planar_resample.cu", "pallas_resample.py:341",
+            "9", form_launches["B4"], max(b4_err, form_lsb, single_lsb), b4_ms, b4_plain, b4_b),
     ]}
     print(json.dumps(summary))
     print(card)

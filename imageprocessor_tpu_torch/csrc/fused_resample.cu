@@ -12,11 +12,16 @@
 // horizontal, in fp32, then Go xdraw's floor(v * 257/256).
 //
 // What bounds it: device memory, and only the source rows and columns the
-// taps touch. Per 8 x 12 MP batch the outputs are 8 x 3 x (768 x 1024 +
-// 200 x 200) = 19.8 MB; the reads are ~2 sampled source rows per output
-// row, each read at 32-byte sector granularity: ~19 MB per image for the
-// resize and ~4 MB for the thumbnail (~180 MB per batch, ~0.06 ms at
-// 3.35 TB/s), against 302 MB for one full read of the source.
+// taps touch, in the 32-byte sectors the memory moves. Per 8 x 12 MP
+// batch the outputs are 8 x 3 x (768 x 1024 + 200 x 200) = 19.8 MB. The
+// resize reads ~2 source rows per output row, and its tap pairs fall
+// every ~3.9 pixels, so every sector of a touched row is needed (~18 MB
+// per 3000 x 4000 image); the thumbnail adds the rows of its crop window
+// that the resize does not touch (~2 MB). chip_smoke.py counts the
+// sectors of its timing batch (six 12 MP images, a 1920 x 1080 and a
+// 640 x 480 one): 141.0 MB with outputs and tap tables, 0.042 ms at
+// 3.35 TB/s, against 80.6 MB if only the touched bytes counted and
+// 302 MB for one full read of the source.
 //
 // Design: one thread per output pixel computes all three channels from
 // the same taps (csrc/bilinear.cuh, shared with kernel B4); consecutive

@@ -12,10 +12,13 @@
 // to [0, 255]. Any scale, upscale included.
 //
 // What bounds it: device memory, and only the source rows and columns the
-// taps touch. Per 8 x 12 MP batch resized to 1024 x 768 the output is
-// 8 x 3 x 768 x 1024 = 18.9 MB and the reads ~2 sampled source rows per
-// output row at 32-byte sector granularity (~150 MB), against 302 MB for a
-// full read of the source.
+// taps touch, in the 32-byte sectors the memory moves. Per 8 x 12 MP
+// batch resized to 1024 x 768 the output is 8 x 3 x 768 x 1024 = 18.9 MB
+// and the reads ~2 source rows per output row, every sector of each (the
+// tap pairs fall every ~3.9 pixels). chip_smoke.py counts the sectors of
+// its timing batch: 129.0 MB with the output and tap tables, 0.039 ms at
+// 3.35 TB/s, against 77.5 MB if only the touched bytes counted and
+// 302 MB for a full read of the source.
 //
 // Design: one thread per output pixel computes its three channels from one
 // set of taps; consecutive threads own consecutive output columns, so

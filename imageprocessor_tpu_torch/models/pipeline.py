@@ -10,10 +10,17 @@ are served as the reference routes them:
   plan — thumbnail 200 crop + resize 1024x768 keep-aspect — is one
   launch). The port's B2 takes any scale, upscales included;
 * every other resize or thumbnail is one launch of kernel B4;
+* crop, flip, rotate and grayscale are the plain tensor ops of
+  ops/extra.py on the planar bucket (the reference keeps an HWC layout
+  for the first three; the port needs none). A crop's canvas is its
+  requested rect clamped to the bucket; flip, grayscale and rotations by
+  0 or 180 degrees or by any other angle fill the bucket canvas, and a
+  rotation by 90 or 270 degrees the transposed one. Every op reads the
+  source bucket: ops are not chained;
 * a watermark's output is the full bucket canvas: the text is blended
-  into the source canvas in place (ops/watermark.py), after every
-  resample launch has read it (one stream orders them). A plan with
-  several watermarks blends every one but the last into a copy.
+  into the source canvas in place (ops/watermark.py), after every other
+  op has read it (one stream orders them). A plan with several
+  watermarks blends every one but the last into a copy.
 
 The tap tables are built on the host for every group and copied to the
 device. PyTorch runs eagerly, so nothing is traced or recompiled, and
@@ -31,8 +38,13 @@ import numpy as np
 import torch
 
 from imageprocessor_tpu_torch.domain import OperationType
-from imageprocessor_tpu_torch.errors import UnsupportedOperationError
 from imageprocessor_tpu_torch.models.plan import NormalizedOp, OperationPlan
+from imageprocessor_tpu_torch.ops.extra import (
+    batched_crop,
+    batched_flip,
+    batched_grayscale_planar,
+    batched_rotate,
+)
 from imageprocessor_tpu_torch.ops.fused_resample import (
     Taps,
     center_crop_windows,
@@ -48,8 +60,6 @@ from imageprocessor_tpu_torch.ops.watermark import (
 )
 
 RESAMPLE_OPS = (OperationType.RESIZE, OperationType.THUMBNAIL)
-# Ops this step serves; the engine refuses plans with any other op.
-SERVED_OPS = (*RESAMPLE_OPS, OperationType.WATERMARK)
 
 
 @dataclass(frozen=True)
@@ -69,8 +79,10 @@ def plan_output_specs(plan: OperationPlan,
                       ) -> tuple[OpOutputSpec, ...]:
     """Output canvases: resize -> the requested (height, width), which
     every keep-aspect output fits; crop thumbnail -> (size, size); aspect
-    thumbnail -> the group's longest side quantized up to /64; watermark
-    -> the full bucket canvas, (0, 0)."""
+    thumbnail -> the group's longest side quantized up to /64; crop ->
+    the requested (height, width), which step_chw clamps to the bucket;
+    watermark, grayscale, flip and rotate -> the full bucket canvas,
+    (0, 0)."""
     specs = []
     for i, op in enumerate(plan.ops):
         if op.type is OperationType.RESIZE:
@@ -81,11 +93,10 @@ def plan_output_specs(plan: OperationPlan,
             long_side = (aspect_long_sides or {}).get(i, op.size)
             long_side = max(_quant_up(long_side, 64), op.size)
             specs.append(OpOutputSpec(op, (long_side, long_side)))
-        elif op.type is OperationType.WATERMARK:
-            specs.append(OpOutputSpec(op, (0, 0)))
+        elif op.type is OperationType.CROP:
+            specs.append(OpOutputSpec(op, (op.height, op.width)))
         else:
-            raise UnsupportedOperationError(
-                f"operation {op.type.value} has no planar step in the port")
+            specs.append(OpOutputSpec(op, (0, 0)))
     return tuple(specs)
 
 
@@ -124,7 +135,8 @@ def step_chw(imgs: torch.Tensor, src_hw: np.ndarray,
              out_hws: dict[int, np.ndarray],
              specs: tuple[OpOutputSpec, ...]) -> list[torch.Tensor]:
     """A plan's ops on one padded group: B2 for the fused pair, B4 for the
-    other resamples, then the watermarks into ``imgs`` in place.
+    other resamples, the tensor ops of ops/extra.py, then the watermarks
+    into ``imgs`` in place.
 
     imgs: (B, 3, Hb, Wb) u8 (consumed: a watermark writes into it);
     src_hw: (B, 2) valid source dims; out_hws: op index -> (B, 2) valid
@@ -142,6 +154,18 @@ def step_chw(imgs: torch.Tensor, src_hw: np.ndarray,
     for i, t in taps.items():
         if outs[i] is None:
             outs[i] = planar_resample(imgs, t)
+    for i, spec in enumerate(specs):
+        op = spec.op
+        if op.type is OperationType.GRAYSCALE:
+            outs[i] = batched_grayscale_planar(imgs)
+        elif op.type is OperationType.FLIP:
+            outs[i] = batched_flip(imgs, src_hw, op.direction)
+        elif op.type is OperationType.CROP:
+            outs[i] = batched_crop(imgs, src_hw, op.x, op.y,
+                                   width=min(op.width, bucket[1]),
+                                   height=min(op.height, bucket[0]))
+        elif op.type is OperationType.ROTATE:
+            outs[i] = batched_rotate(imgs, src_hw, op.angle)
     marks = [i for i, s in enumerate(specs) if s.op.type is OperationType.WATERMARK]
     for k, i in enumerate(marks):
         op = specs[i].op

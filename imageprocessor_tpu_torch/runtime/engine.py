@@ -13,29 +13,38 @@ The path of one task:
    sampling (4:2:0, 4:2:2, 4:4:0, 4:4:4); anything else is decoded to
    HWC pixels by runtime/codecs.decode_image. A plan with a watermark
    whose rendition is a JPEG scans a JPEG for the splice instead
-   (runtime/splice.py, when IMAGEPROCESSOR_JPEG_SPLICE is not 0): a
-   watermark-only plan then needs no pixels at all (layout "splice");
+   (runtime/splice.py, when IMAGEPROCESSOR_JPEG_SPLICE is not 0). A plan
+   made only of watermarks and of the transforms the coefficient domain
+   expresses (crop, flip, rotation by a multiple of 90 degrees:
+   runtime/coeftx.py), all with JPEG renditions, then needs no pixels at
+   all (layout "splice");
 2. items are grouped by (bucket, plan, layout) and padded to a power-of-
    two batch (runtime/batcher, a copy of the reference's);
 3. device: kernel B1 decodes the coefficient canvases into the planar
    bucket (HWC groups are uploaded and permuted instead); the plan's
    resamples run through kernel B2 (the first thumbnail + resize pair)
-   and kernel B4 (every other one), and a watermark the splice does not
-   serve is blended into the bucket in place. Each resample output is
-   cropped on the device to the group's largest valid extent (rounded up
-   to /64) before it is copied to the host; a watermark bucket whose
+   and kernel B4 (every other one); crop, flip, rotate and grayscale are
+   the tensor ops of ops/extra.py; a watermark the splice does not serve
+   is blended into the bucket in place. Each output with per-image valid
+   dims (resample, crop, rotate) is cropped on the device to the group's
+   largest valid extent (rounded up to /64) before it is copied to the
+   host; a full-bucket output (watermark, flip, grayscale) whose
    renditions are all JPEGs goes through kernel B3 (the encode front
    half) at the group's largest valid extent rounded up to /16, and its
    int16 coefficient canvases are copied instead;
-4. host: a spliced watermark is emitted by region transcode, B3's
-   coefficients by the entropy emitter (runtime/hostcodec.py), every
-   other output is encoded by runtime/codecs.encode_image; all are saved
-   under the reference's deterministic paths.
+4. host: a spliced watermark is emitted by region transcode, a
+   coefficient-domain transform by permuting the scanned blocks and
+   re-symbolizing them, B3's coefficients by the entropy emitter
+   (runtime/hostcodec.py), every other output is encoded by
+   runtime/codecs.encode_image; all are saved under the reference's
+   deterministic paths.
 
-This slice serves plans made of thumbnail, resize and watermark ops —
-every plan the upload form produces. Any other op fails the task
-PERMANENTLY with UnsupportedOperationError. Failures are classified like
-the reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
+All seven operation types of the domain are served; normalize_operations
+is the single gate. ``process_single`` is the reference-sequential path:
+one decoded image through each op in turn (the resamples as one-image
+launches of kernel B4), the baseline of the batched path and the
+fallback of the coefficient routes. Failures are classified like the
+reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
 device; nacked for redelivery).
 """
 
@@ -57,13 +66,13 @@ from imageprocessor_tpu_torch.domain import (
     ProcessingResult,
     ProcessingTask,
 )
-from imageprocessor_tpu_torch.errors import StorageError, UnsupportedOperationError
-from imageprocessor_tpu_torch.kernels import KernelError
-from imageprocessor_tpu_torch.models.pipeline import (
-    SERVED_OPS,
-    plan_output_specs,
-    step_chw,
+from imageprocessor_tpu_torch.errors import (
+    DecodeError,
+    StorageError,
+    UnsupportedOperationError,
 )
+from imageprocessor_tpu_torch.kernels import KernelError
+from imageprocessor_tpu_torch.models.pipeline import plan_output_specs, step_chw
 from imageprocessor_tpu_torch.models.plan import (
     InvalidParamsError,
     NormalizedOp,
@@ -71,10 +80,18 @@ from imageprocessor_tpu_torch.models.plan import (
     normalize_operations,
 )
 from imageprocessor_tpu_torch.ops.coords import keep_aspect_dims, thumbnail_dims
+from imageprocessor_tpu_torch.ops.extra import (
+    crop_image,
+    flip_image,
+    grayscale_image,
+    rotate_image,
+)
 from imageprocessor_tpu_torch.ops.jpeg_encode import quality_qtables
 from imageprocessor_tpu_torch.ops.jpeg_kernels import decode_coefs, encode_420
+from imageprocessor_tpu_torch.ops.resize import resize_image
+from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
 from imageprocessor_tpu_torch.ops.watermark import watermark_image
-from imageprocessor_tpu_torch.runtime import hostcodec, splice
+from imageprocessor_tpu_torch.runtime import coeftx, hostcodec, splice
 from imageprocessor_tpu_torch.runtime.batcher import (
     MAX_BATCH,
     BatchItem,
@@ -101,6 +118,11 @@ log = logging.getLogger("imageprocessor_tpu_torch.engine")
 PERMANENT = "permanent"
 TRANSIENT = "transient"
 
+# ops whose device output is the whole bucket canvas, valid over each image's
+# own (h, w): kernel B3 encodes them when every item wants a JPEG
+FULL_BUCKET_OPS = (OperationType.WATERMARK, OperationType.FLIP,
+                   OperationType.GRAYSCALE)
+
 
 @dataclass
 class Artifact:
@@ -119,15 +141,6 @@ class EngineResult:
     result: ProcessingResult
     artifacts: list[Artifact] = field(default_factory=list)
     error_kind: str = ""
-
-
-def check_supported(plan: OperationPlan) -> None:
-    """Raise UnsupportedOperationError for ops outside this slice."""
-    for op in plan.ops:
-        if op.type not in SERVED_OPS:
-            raise UnsupportedOperationError(
-                f"operation {op.type.value} is not served by the torch "
-                "engine yet")
 
 
 class TorchProcessingEngine:
@@ -169,11 +182,11 @@ class TorchProcessingEngine:
 
     def _encode_and_save(self, task: ProcessingTask, op: NormalizedOp,
                          arr: np.ndarray, fmt: str) -> Artifact:
-        """arr: planar (3, h, w) u8 valid output."""
+        """arr: one valid u8 output, (h, w, 3)."""
         out_fmt = negotiate_format(fmt,
                                    watermark=op.type is OperationType.WATERMARK)
-        data = encode_image(np.ascontiguousarray(arr.transpose(1, 2, 0)),
-                            out_fmt, quality=self.jpeg_quality)
+        data = encode_image(np.ascontiguousarray(arr), out_fmt,
+                            quality=self.jpeg_quality)
         return self._save_artifact(task, op, data, out_fmt)
 
     def _save_artifact(self, task: ProcessingTask, op: NormalizedOp,
@@ -212,12 +225,96 @@ class TorchProcessingEngine:
             arr = splice.decode_rgb(ctx)
             if not ctx.edited:
                 arr = watermark_image(arr, op)
-            return self._encode_and_save(task, op, arr.transpose(2, 0, 1),
-                                         "jpeg")
+            return self._encode_and_save(task, op, arr, "jpeg")
         METRICS.observe("engine_splice_emit_ms",
                         (time.monotonic() - t0) * 1000.0)
         METRICS.inc("engine_splice_images", 1)
         return self._save_artifact(task, op, data, "jpeg")
+
+    def _coef_tx_and_save(self, task: ProcessingTask, op: NormalizedOp,
+                          ctx) -> Artifact:
+        """Crop, rotate or flip rendition by a lossless coefficient-domain
+        transform (runtime/coeftx.py, jpegtran-style): permute the
+        quantized blocks and re-symbolize them with the source's own
+        tables — no pixel decode, no generation loss. Fallback, as
+        _splice_and_save: decode the scanned coefficients on the host,
+        run the single-image op, re-encode at the engine quality."""
+        t0 = time.monotonic()
+        try:
+            prims = coeftx.eligible_prims(op, ctx.size, ctx.sampling)
+            if prims is None or not splice.coef_reencodable(ctx):
+                raise hostcodec.HostCodecError(
+                    "transform not expressible in the coefficient domain")
+            data = splice.reencode(coeftx.apply(ctx, prims))
+        except hostcodec.HostCodecError:
+            arr = self._apply_single(splice.decode_rgb(ctx), op)
+            return self._encode_and_save(task, op, arr, "jpeg")
+        METRICS.observe("engine_coeftx_emit_ms",
+                        (time.monotonic() - t0) * 1000.0)
+        METRICS.inc("engine_coeftx_images", 1)
+        return self._save_artifact(task, op, data, "jpeg")
+
+    # ------------------------------------------------------ single-image path
+
+    def _apply_single(self, arr: np.ndarray, op: NormalizedOp) -> np.ndarray:
+        """One op on one (h, w, 3) u8 image, on the engine's device."""
+        t = op.type
+        if t is OperationType.WATERMARK:   # host blend, as the splice fallback
+            return watermark_image(arr, op)
+        img = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        if t is OperationType.RESIZE:
+            out = resize_image(img, op.width, op.height, op.keep_aspect)
+        elif t is OperationType.THUMBNAIL:
+            out = thumbnail_image(img, op.size, op.crop_to_fit)
+        elif t is OperationType.CROP:
+            out = crop_image(img, op.x, op.y, op.width, op.height)
+        elif t is OperationType.ROTATE:
+            out = rotate_image(img, op.angle)
+        elif t is OperationType.FLIP:
+            out = flip_image(img, op.direction)
+        elif t is OperationType.GRAYSCALE:
+            out = grayscale_image(img)
+        else:
+            raise UnsupportedOperationError(f"unsupported operation type: {t}")
+        return out.cpu().numpy()
+
+    def process_single(self, task: ProcessingTask, data: bytes) -> EngineResult:
+        """Reference-sequential path: decode once, then each op on the
+        decoded image and its encode, fail-fast. The baseline of the
+        batched path."""
+        try:
+            arr, detected_fmt = decode_image(data)
+        except DecodeError as exc:
+            return self._failed(task, f"Failed to decode image: {exc}")
+        fmt = (task.format or detected_fmt or "jpeg").lower()
+        try:
+            plan = normalize_operations(task.operations)
+        except (InvalidParamsError, UnsupportedOperationError, ValueError) as exc:
+            return self._failed(task, f"Operation failed: {exc}")
+        return self._process_decoded_single(task, arr, fmt, plan)
+
+    def _process_decoded_single(self, task, arr, fmt, plan) -> EngineResult:
+        out = EngineResult(result=ProcessingResult(
+            id=task.id, image_id=task.image_id, status=ImageStatus.COMPLETED))
+        for op in plan:
+            try:
+                artifact = self._encode_and_save(
+                    task, op, self._apply_single(arr, op), fmt)
+            except Exception as exc:
+                self._classify_op_failure(out, op, exc)
+                return out
+            out.artifacts.append(artifact)
+            out.result.processed_paths[op.type.value] = artifact.path
+        return out
+
+    @classmethod
+    def _classify_op_failure(cls, out: EngineResult, op: NormalizedOp,
+                             exc: Exception) -> None:
+        """Fail-fast bookkeeping for one op failure: infra errors are
+        TRANSIENT, everything else (compute, encode, params) PERMANENT."""
+        out.result.status = ImageStatus.FAILED
+        out.result.error = f"Operation {op.type.value} failed: {exc}"
+        out.error_kind = TRANSIENT if cls._is_infra_failure(exc) else PERMANENT
 
     # ---------------------------------------------------------------- decode
 
@@ -231,27 +328,46 @@ class TorchProcessingEngine:
         (h, w, 3) pixels (layout "hwc"). When the plan has a watermark
         whose rendition negotiates to JPEG and the splice is enabled, the
         JPEG is scanned for the splice (runtime/splice.py) and its context
-        rides along as the fifth element; a watermark-only plan then
-        returns the "splice" placeholder (no pixels: every rendition is
+        rides along as the fifth element. A plan whose every op the
+        coefficient domain serves — watermarks (the splice) and crop,
+        flip and rotate (runtime/coeftx.py) — with every rendition a JPEG
+        returns the "splice" placeholder (no pixels: each rendition is
         emitted from the scanned coefficients at finish time).
         task_format=None keeps the splice scan (the source is a JPEG, so
         the detected format negotiates to JPEG)."""
-        if plan is not None:
-            check_supported(plan)
         is_jpeg = (detect_content_type(data[:512]) == "image/jpeg"
                    and jpeg_stream_complete(data))
-        wm_jpeg = (plan is not None
-                   and any(op.type is OperationType.WATERMARK for op in plan.ops)
-                   and negotiate_format(task_format or "jpeg",
-                                        watermark=True) == "jpeg")
-        # no coefficient-domain transform op is served yet, so a plan is
-        # served from the coefficients alone exactly when every op is a
-        # watermark
-        coef_only = wm_jpeg and all(op.type is OperationType.WATERMARK
-                                    for op in plan.ops)
+        ops = plan.ops if plan is not None else ()
+        fmt0 = task_format or "jpeg"
+        has_wm = any(op.type is OperationType.WATERMARK for op in ops)
+        tx_ops = [op for op in ops if op.type in coeftx.TX_TYPES]
+        all_coef_types = len(ops) > 0 and all(
+            op.type is OperationType.WATERMARK or op.type in coeftx.TX_TYPES
+            for op in ops)
+        # a rendition that can never negotiate to JPEG (format=png) would
+        # discard the context at finish time
+        fmt_ok_all = all(
+            negotiate_format(fmt0, watermark=op.type is OperationType.WATERMARK)
+            == "jpeg" for op in ops)
+        coef_only = all_coef_types and fmt_ok_all
+        wants_splice = (is_jpeg and splice.enabled()
+                        and ((has_wm and negotiate_format(
+                            fmt0, watermark=True) == "jpeg") or coef_only))
+
+        def coef_scan():
+            """The plain coefficient scan and its context for the
+            coefficient routes (a grayscale source promoted to colour),
+            None where the stream cannot be re-symbolized."""
+            scanned = hostcodec.scan_jpeg_coefficients(data)
+            make = (splice.promote_grayscale if len(scanned[0]) == 1
+                    else splice.coef_context)
+            c = make(*scanned)
+            return scanned, (c if splice.coef_reencodable(c) else None)
+
+        # one scan, shared by the splice context and the coefficient decode
         sctx = None
         scanned = None   # (planes, qtabs, (w, h), sampling)
-        if is_jpeg and wm_jpeg and splice.enabled():
+        if wants_splice and has_wm:
             try:
                 c = hostcodec.scan_jpeg_for_transcode(data)
                 scanned = (c.planes, c.qtabs, c.size, c.sampling)
@@ -268,19 +384,26 @@ class TorchProcessingEngine:
                 # re-symbolization), the rest fall to the pixel decoders.
                 try:
                     if hostcodec.is_progressive(data):
-                        scanned = hostcodec.scan_jpeg_coefficients(data)
-                        planes, qt, size, samp = scanned
-                        c = (splice.promote_grayscale(planes, qt, size, samp)
-                             if len(planes) == 1
-                             else splice.coef_context(planes, qt, size, samp))
-                        if splice.coef_reencodable(c):
-                            sctx = c
+                        scanned, sctx = coef_scan()
                 except hostcodec.HostCodecError:
                     pass   # unparseable/truncated: pixel decode below
+        elif wants_splice:
+            # a transform-only plan re-symbolizes every MCU, so the
+            # transcode scan's bit offsets buy nothing: take the plain
+            # coefficient scan (it also covers progressive sources)
+            try:
+                scanned, sctx = coef_scan()
+            except hostcodec.HostCodecError:
+                pass   # exotic stream: pixel decode below
+        # A group of "splice" items never packs: it is either all-splice
+        # (device_group returns before the pack) or all-pixels.
         if coef_only and sctx is not None:
-            w, h = sctx.size
-            return (np.empty((0, 0, 3), dtype=np.uint8), "jpeg", "splice",
-                    (h, w), sctx)
+            tx_ok = all(coeftx.eligible_prims(op, sctx.size, sctx.sampling)
+                        is not None for op in tx_ops)
+            if tx_ok and (not tx_ops or splice.coef_reencodable(sctx)):
+                w, h = sctx.size
+                return (np.empty((0, 0, 3), dtype=np.uint8), "jpeg", "splice",
+                        (h, w), sctx)
         if is_jpeg:
             try:
                 if scanned is None:
@@ -318,7 +441,6 @@ class TorchProcessingEngine:
         for i, (task, _data) in enumerate(tasks_with_data):
             try:
                 plans[i] = normalize_operations(task.operations)
-                check_supported(plans[i])
             except (InvalidParamsError, UnsupportedOperationError,
                     ValueError) as exc:
                 results[i] = self._failed(task, f"Operation failed: {exc}")
@@ -389,7 +511,9 @@ class TorchProcessingEngine:
         """Stage 2: one packed group through the device. Returns (plan,
         per-op host outputs, out_hws, layout). An output is a (B, 3, h, w)
         u8 array, ("coef420", yc, cbc, crc, qt) for B3's canvases, or
-        ("splice", op) for a watermark the finish stage splices."""
+        ("splice", op) for a rendition the finish stage emits from the
+        scanned coefficients (a spliced watermark, a coefficient-domain
+        transform)."""
         plan: OperationPlan = group.items[0].payload[3]
         n_real = len(group.items)
 
@@ -411,7 +535,8 @@ class TorchProcessingEngine:
 
         b = quantize_batch(n_real)
         # per-op, per-image valid output dims (Go-exact host arithmetic);
-        # pad rows mirror the last real image
+        # a resample's pad rows mirror the last real image, a crop's and
+        # a rotate's are (1, 1)
         out_hws: dict[int, np.ndarray] = {}
         aspect_long: dict[int, int] = {}
         for oi, op in enumerate(plan.ops):
@@ -437,6 +562,23 @@ class TorchProcessingEngine:
                 hw[n_real:] = hw[n_real - 1]
                 out_hws[oi] = hw
                 aspect_long[oi] = long_side
+            elif op.type is OperationType.CROP:
+                # the same per-image clamping as the single-image op
+                hw = np.ones((b, 2), dtype=np.int32)
+                for i, it in enumerate(group.items):
+                    h, w = it.hw
+                    cx = max(0, min(op.x, w - 1))
+                    cy = max(0, min(op.y, h - 1))
+                    hw[i] = (max(1, min(op.height, h - cy)),
+                             max(1, min(op.width, w - cx)))
+                out_hws[oi] = hw
+            elif op.type is OperationType.ROTATE:
+                hw = np.ones((b, 2), dtype=np.int32)
+                swap = (op.angle % 180.0) == 90.0
+                for i, it in enumerate(group.items):
+                    h, w = it.hw
+                    hw[i] = (w, h) if swap else (h, w)
+                out_hws[oi] = hw
         # plan op index -> its index in the device plan (spliced ops left out)
         run = {oi: k for k, oi in enumerate(
             oi for oi in range(len(plan.ops)) if oi not in splice_skip)}
@@ -466,8 +608,12 @@ class TorchProcessingEngine:
             if oi in out_hws:
                 o = o[:, :, :_q64(int(out_hws[oi][:n_real, 0].max()), o.shape[2]),
                       :_q64(int(out_hws[oi][:n_real, 1].max()), o.shape[3])]
-            elif op.type is OperationType.WATERMARK:
-                if all(negotiate_format(it.payload[2], watermark=True) == "jpeg"
+            elif op.type in FULL_BUCKET_OPS:
+                # a full-bucket output that every item wants as a JPEG: the
+                # encode front half runs on the device and the finish stage
+                # keeps the entropy emit
+                is_wm = op.type is OperationType.WATERMARK
+                if all(negotiate_format(it.payload[2], watermark=is_wm) == "jpeg"
                        for it in group.items):
                     outs_np.append(self._encode_coefs(o, group, max_h, max_w))
                     continue
@@ -513,7 +659,10 @@ class TorchProcessingEngine:
             o = outs_np[oi]
             try:
                 if isinstance(o, tuple) and o[0] == "splice":
-                    artifact = self._splice_and_save(task, op, it.splice)
+                    artifact = (
+                        self._splice_and_save(task, op, it.splice)
+                        if op.type is OperationType.WATERMARK
+                        else self._coef_tx_and_save(task, op, it.splice))
                 elif (op.type is OperationType.WATERMARK
                         and it.splice is not None
                         and negotiate_format(fmt, watermark=True) == "jpeg"):
@@ -522,19 +671,17 @@ class TorchProcessingEngine:
                     artifact = self._splice_and_save(task, op, it.splice)
                 elif isinstance(o, tuple):
                     artifact = self._emit_and_save(task, op, o, i, h, w)
-                elif oi in out_hws:
-                    oh, ow = out_hws[oi][i]
-                    artifact = self._encode_and_save(task, op, o[i][:, :oh, :ow], fmt)
-                elif op.type is OperationType.THUMBNAIL:
-                    # crop thumbnail: the (size, size) canvas is all valid
-                    artifact = self._encode_and_save(task, op, o[i], fmt)
-                else:   # full-bucket canvas: crop to the valid extent
-                    artifact = self._encode_and_save(task, op, o[i][:, :h, :w], fmt)
+                else:
+                    if oi in out_hws:
+                        oh, ow = out_hws[oi][i]
+                    elif op.type in FULL_BUCKET_OPS:   # crop to the valid extent
+                        oh, ow = h, w
+                    else:   # crop thumbnail: the (size, size) canvas is all valid
+                        oh, ow = o.shape[2:]
+                    artifact = self._encode_and_save(
+                        task, op, o[i][:, :oh, :ow].transpose(1, 2, 0), fmt)
             except Exception as exc:
-                out.result.status = ImageStatus.FAILED
-                out.result.error = f"Operation {op.type.value} failed: {exc}"
-                out.error_kind = (TRANSIENT if self._is_infra_failure(exc)
-                                  else PERMANENT)
+                self._classify_op_failure(out, op, exc)
                 return out
             out.artifacts.append(artifact)
             out.result.processed_paths[op.type.value] = artifact.path

@@ -217,21 +217,34 @@ def test_png_source_takes_pixel_path(engines):
 
 
 def test_unsupported_and_undecodable_fail_permanently(engines):
-    _, (port, _) = engines
+    """Every declared op type is served, so the crop task completes; an
+    op whose parameters the plan refuses (a crop without a size, a
+    rotate without an angle) and an undecodable upload fail PERMANENTLY,
+    each alone beside batchmates that complete."""
+    _, (port, s_port) = engines
     crop = make_task([OperationParams(OperationType.CROP,
                                       {"x": 0, "y": 0, "width": 8, "height": 8})])
+    no_size = make_task([OperationParams(OperationType.CROP, {"x": 0, "y": 0})])
+    no_angle = make_task([OperationParams(OperationType.ROTATE, {})])
     bad = make_task(DEFAULT)
     ok = make_task(DEFAULT)
     res = port.process_tasks([(to_port(crop), BLOBS[0]),
                               (to_port(bad), BLOBS[0][:400]),
-                              (to_port(ok), BLOBS[0])])
+                              (to_port(ok), BLOBS[0]),
+                              (to_port(no_size), BLOBS[0]),
+                              (to_port(no_angle), BLOBS[0])])
     status = port_domain.ImageStatus
-    assert res[0].result.status is status.FAILED
-    assert res[0].error_kind == PERMANENT
-    assert "crop" in res[0].result.error
+    assert res[0].result.status is status.COMPLETED, res[0].result.error
+    out, _ = decode_image(s_port.get_object(res[0].result.processed_paths["crop"]))
+    assert out.shape == (8, 8, 3)
     assert res[1].result.status is status.FAILED
     assert res[1].error_kind == PERMANENT
     assert res[2].result.status is status.COMPLETED
+    for r, word in ((res[3], "width and height"), (res[4], "angle")):
+        assert r.result.status is status.FAILED
+        assert r.error_kind == PERMANENT
+        assert word in r.result.error
+        assert r.artifacts == []
 
 
 def test_worker_steps_with_the_ports_service_pieces(tmp_path):
@@ -460,3 +473,315 @@ def test_watermark_only_splice_group_skips_the_device(engines, monkeypatch):
     res = port.process_tasks([(to_port(_wm_task()), b) for b in BLOBS])
     assert all(r.result.status is port_domain.ImageStatus.COMPLETED for r in res)
     assert calls == []
+
+
+# --- crop, flip, rotate, grayscale -------------------------------------------
+
+def _op(kind, **params):
+    return OperationParams(OperationType(kind), params)
+
+
+TRANSFORMS = {
+    "crop_aligned": _op("crop", x=16, y=32, width=120, height=90),
+    "crop_unaligned": _op("crop", x=21, y=13, width=150, height=100),
+    "crop_past": _op("crop", x=200, y=200, width=2000, height=2000),
+    "crop_clamped": _op("crop", x=32, y=16, width=2000, height=2000),
+    "flip_h": _op("flip", direction="horizontal"),
+    "flip_v": _op("flip", direction="vertical"),
+    "rot90": _op("rotate", angle=90),
+    "rot180": _op("rotate", angle=180),
+    "rot270": _op("rotate", angle=270),
+    "rot30": _op("rotate", angle=30),
+    "grayscale": _op("grayscale"),
+}
+# served from the scanned coefficients when source and renditions are JPEGs.
+# crop_past is planned for the coefficients too, but its luma origin is
+# block-aligned and its MCU-rounded extent passes the bottom of the scanned
+# plane, which the shared coeftx code slices short: the emitter refuses, and
+# both engines fall back to the single-image op on the decoded coefficients.
+COEF_SERVED = sorted(set(TRANSFORMS) - {"rot30", "grayscale", "crop_past"})
+
+
+def _counter(name):
+    from imageprocessor_tpu_torch.utils.metrics import METRICS
+    return METRICS.snapshot()["counters"].get(name, 0)
+
+
+@pytest.mark.parametrize("splice_on", [True, False], ids=["splice", "nosplice"])
+@pytest.mark.parametrize("name", sorted(TRANSFORMS))
+def test_transform_plans_match_reference(engines, monkeypatch, name, splice_on):
+    """One op over three JPEGs of mixed dims. With the splice on, crop,
+    flip and the rotations by 90s come from the coefficients: the
+    artifacts are the reference's byte for byte. Everything else runs on
+    the device (B1's plain version, the op, the host or B3 encode):
+    PSNR > 45 dB against the reference's artifacts, equal dims."""
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "1" if splice_on else "0")
+    (ref, _), (port, _) = engines
+    tasks = [make_task([TRANSFORMS[name]]) for _ in BLOBS]
+    coef = splice_on and name in COEF_SERVED
+    n0 = _counter("engine_coeftx_images")
+    r_ref = ref.process_tasks(list(zip(tasks, BLOBS)))
+    r_port = port.process_tasks([(to_port(t), b) for t, b in zip(tasks, BLOBS)])
+    assert _counter("engine_coeftx_images") - n0 == (len(BLOBS) if coef else 0)
+    kind = TRANSFORMS[name].type.value
+    for a, b in zip(r_ref, r_port):
+        _compare_artifacts(engines, a, b, exact_ops=(kind,) if coef else ())
+
+
+@pytest.mark.parametrize("name", COEF_SERVED)
+def test_coefficient_plans_skip_the_device(engines, monkeypatch, name):
+    """A JPEG -> JPEG plan of coefficient-domain ops and a watermark has
+    the "splice" layout: no pixels are decoded, nothing is uploaded and
+    the device stage records 0 ms. Both renditions are the reference's
+    bytes."""
+    from imageprocessor_tpu_torch.utils.metrics import METRICS
+    (ref, _), (port, _) = engines
+    ops = [TRANSFORMS[name], WATERMARK]
+    task = make_task(ops)
+    arr, det, layout, hw, sctx = port.decode_for_plan_ex(
+        BLOBS[0], port_plan(ops), "jpeg")
+    assert (layout, det, hw, arr.size) == ("splice", "jpeg", (300, 400), 0)
+    assert sctx is not None
+    calls = []
+    monkeypatch.setattr(port, "_upload", lambda *a: calls.append(a))
+    METRICS.reset()
+    b = port.process_tasks([(to_port(task), BLOBS[0])])[0]
+    assert calls == []
+    assert METRICS.snapshot()["timings"]["engine_device_ms"]["max"] == 0.0
+    assert _counter("engine_coeftx_images") == 1
+    assert _counter("engine_splice_images") == 1
+    a = ref.process_tasks([(task, BLOBS[0])])[0]
+    _compare_artifacts(engines, a, b,
+                       exact_ops=(TRANSFORMS[name].type.value, "watermark"))
+
+
+@pytest.mark.parametrize("why", ["format_png", "mixed_with_resize", "rot30",
+                                 "splice_off", "png_source"])
+def test_plans_the_coefficients_cannot_serve_take_the_device(engines, monkeypatch,
+                                                            why):
+    """coef_only needs every op to be a coefficient-domain type and every
+    rendition to negotiate to JPEG."""
+    _, (port, _) = engines
+    ops, fmt, blob = [TRANSFORMS["flip_h"]], "jpeg", BLOBS[0]
+    if why == "format_png":
+        fmt = "png"
+    elif why == "mixed_with_resize":
+        ops = ops + [DEFAULT[1]]
+    elif why == "rot30":
+        ops = [TRANSFORMS["rot30"], TRANSFORMS["flip_v"]]
+    elif why == "splice_off":
+        monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
+    else:
+        bio = io.BytesIO()
+        PILImage.fromarray(photo(64, 80)).save(bio, format="PNG")
+        blob = bio.getvalue()
+    layout = port.decode_for_plan_ex(blob, port_plan(ops), fmt)[2]
+    assert layout == ("hwc" if why == "png_source" else "coef:22")
+    res = port.process_tasks([(to_port(make_task(ops, fmt=fmt)), blob)])[0]
+    assert res.result.status is port_domain.ImageStatus.COMPLETED, res.result.error
+    ext = ".png" if fmt == "png" else ".jpeg"
+    assert all(p.endswith(ext) for p in res.result.processed_paths.values())
+
+
+@pytest.mark.parametrize("kind", ["progressive", "grayscale", "restart"])
+def test_transform_sources_match_reference(engines, kind):
+    """Progressive, grayscale (promoted in the coefficient domain) and
+    restart-marked sources through the coefficient route: the
+    reference's bytes."""
+    (ref, _), (port, _) = engines
+    task = make_task([TRANSFORMS["rot90"], TRANSFORMS["flip_h"],
+                      TRANSFORMS["crop_unaligned"]])
+    blob = SPLICE_SOURCES[kind]
+    assert port.decode_for_plan_ex(
+        blob, normalize_operations(to_port(task).operations), "jpeg")[2] == "splice"
+    a = ref.process_tasks([(task, blob)])[0]
+    b = port.process_tasks([(to_port(task), blob)])[0]
+    _compare_artifacts(engines, a, b, exact_ops=("rotate", "flip", "crop"))
+
+
+def _png(arr):
+    bio = io.BytesIO()
+    PILImage.fromarray(arr).save(bio, format="PNG")
+    return bio.getvalue()
+
+
+def _go_gray(arr):
+    x = arr.astype(np.int64) * 257
+    y = ((299 * x[..., 0] + 587 * x[..., 1] + 114 * x[..., 2] + 500) // 1000) >> 8
+    return np.repeat(y[..., None], 3, axis=-1).astype(np.uint8)
+
+
+def _near_boundary(h, w, angle, eps=1e-3):
+    """Pixels whose float64 source coordinate lies within eps of the
+    validity boundary (-0.5 or dim - 0.5) of an (h, w) image rotated about
+    its centre."""
+    th = np.deg2rad(np.float64(angle))
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    dy = np.arange(h, dtype=np.float64)[:, None] - cy
+    dx = np.arange(w, dtype=np.float64)[None, :] - cx
+    sx = np.cos(th) * dx - np.sin(th) * dy + cx
+    sy = np.sin(th) * dx + np.cos(th) * dy + cy
+    return ((np.abs(sx + 0.5) < eps) | (np.abs(sx - (w - 0.5)) < eps)
+            | (np.abs(sy + 0.5) < eps) | (np.abs(sy - (h - 0.5)) < eps))
+
+
+def _crop(arr, x, y, w, h):
+    x, y = min(x, arr.shape[1] - 1), min(y, arr.shape[0] - 1)
+    return arr[y:y + h, x:x + w]
+
+
+PNG_EXPECT = {
+    "crop_aligned": lambda a: _crop(a, 16, 32, 120, 90),
+    "crop_unaligned": lambda a: _crop(a, 21, 13, 150, 100),
+    "crop_past": lambda a: _crop(a, 200, 200, 2000, 2000),
+    "crop_clamped": lambda a: _crop(a, 32, 16, 2000, 2000),
+    "flip_h": lambda a: a[:, ::-1], "flip_v": lambda a: a[::-1],
+    "rot90": lambda a: np.rot90(a, 1), "rot180": lambda a: np.rot90(a, 2),
+    "rot270": lambda a: np.rot90(a, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORMS))
+def test_png_device_outputs_equal_numpy(engines, name):
+    """PNG in, PNG out: nothing is lossy, so the batched device route is
+    held to numpy exactly on a group of mixed dims (an odd-sized image, a
+    pad row: three items in a batch of four) — crop, flip and the
+    rotations by 90s at 0 LSB, grayscale at 0 LSB of the reference and
+    <= 1 of Go's integer formula, rotate 30 at <= 1 LSB of the reference
+    off the pixels at the validity boundary."""
+    (ref, s_ref), (port, s_port) = engines
+    arrs = [photo(230, 310), photo(256, 320), photo(199, 257)]
+    tasks = [make_task([TRANSFORMS[name]], fmt="png") for _ in arrs]
+    blobs = [_png(a) for a in arrs]
+    r_ref = ref.process_tasks(list(zip(tasks, blobs)))
+    r_port = port.process_tasks([(to_port(t), b) for t, b in zip(tasks, blobs)])
+    kind = TRANSFORMS[name].type.value
+    for arr, a, b in zip(arrs, r_ref, r_port):
+        assert b.result.status is port_domain.ImageStatus.COMPLETED, b.result.error
+        assert a.result.processed_paths == b.result.processed_paths
+        path = b.result.processed_paths[kind]
+        assert path.endswith(".png")
+        got, _ = decode_image(s_port.get_object(path))
+        want, _ = decode_image(s_ref.get_object(path))
+        assert got.shape == want.shape
+        if name in PNG_EXPECT:
+            np.testing.assert_array_equal(got, PNG_EXPECT[name](arr))
+            np.testing.assert_array_equal(got, want)
+        elif name == "grayscale":
+            np.testing.assert_array_equal(got, want)
+            assert np.abs(got.astype(int) - _go_gray(arr).astype(int)).max() <= 1
+        else:
+            mask = _near_boundary(*arr.shape[:2], 30.0)
+            diff = np.abs(got.astype(int) - want.astype(int)).max(axis=-1)
+            assert diff[~mask].max() <= 1
+            assert mask.sum() <= 4 + mask.size // 100
+
+
+ALL_SEVEN = [DEFAULT[0], DEFAULT[1], WATERMARK, TRANSFORMS["crop_unaligned"],
+             TRANSFORMS["rot90"], TRANSFORMS["flip_v"], TRANSFORMS["grayscale"]]
+
+
+@pytest.mark.parametrize("splice_on", [True, False], ids=["splice", "nosplice"])
+def test_all_seven_ops_in_one_plan_match_reference(engines, monkeypatch, splice_on):
+    """One plan with every op type on JPEGs: the resample pair through
+    B2's plain version, the rest as above; with the splice on only the
+    watermark leaves the device plan (the plan is not all-coefficient)."""
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "1" if splice_on else "0")
+    (ref, _), (port, _) = engines
+    tasks = [make_task(ALL_SEVEN) for _ in BLOBS]
+    r_ref = ref.process_tasks(list(zip(tasks, BLOBS)))
+    r_port = port.process_tasks([(to_port(t), b) for t, b in zip(tasks, BLOBS)])
+    for a, b in zip(r_ref, r_port):
+        assert len(b.artifacts) == 7
+        _compare_artifacts(engines, a, b,
+                           exact_ops=("watermark",) if splice_on else ())
+
+
+def test_full_bucket_jpeg_outputs_go_through_the_encoder_kernel(engines, monkeypatch):
+    """Flip and grayscale fill the bucket canvas: renditions that every
+    item wants as a JPEG are encoded by kernel B3 (here its plain
+    version) and emitted on the host; crop and rotate outputs have
+    per-image dims and leave as pixels."""
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
+    _, (port, _) = engines
+    seen = []
+    inner = port._encode_coefs
+    monkeypatch.setattr(port, "_encode_coefs",
+                        lambda canvas, *a: seen.append(tuple(canvas.shape))
+                        or inner(canvas, *a))
+    ops = [TRANSFORMS["flip_h"], TRANSFORMS["grayscale"], TRANSFORMS["rot90"],
+           TRANSFORMS["crop_aligned"]]
+    res = port.process_tasks([(to_port(make_task(ops)), BLOBS[0])])[0]
+    assert res.result.status is port_domain.ImageStatus.COMPLETED, res.result.error
+    assert len(seen) == 2
+    seen.clear()
+    res = port.process_tasks([(to_port(make_task(ops, fmt="png")), BLOBS[0])])[0]
+    assert res.result.status is port_domain.ImageStatus.COMPLETED, res.result.error
+    assert seen == []
+
+
+@pytest.mark.parametrize("source", ["jpeg", "png"])
+def test_process_single_matches_the_batched_path(engines, source):
+    """The single-image path (decode once, each op in turn; resize and
+    thumbnail as one-image calls of B4's plain version) against the
+    batched path on the same task, PNG renditions so nothing is lossy:
+    crop, flip, rotate by 90 and grayscale equal, the resamples and the
+    watermark within 1 LSB (for a JPEG source the two paths decode with
+    different IDCTs, <= 1 LSB apart, before any op: every output within
+    2 LSB). And against the reference's single-image path."""
+    (ref, s_ref), (port, s_port) = engines
+    blob = BLOBS[0] if source == "jpeg" else _png(photo(300, 400))
+    t1, t2 = make_task(ALL_SEVEN, fmt="png"), make_task(ALL_SEVEN, fmt="png")
+    one = port.process_single(to_port(t1), blob)
+    many = port.process_tasks([(to_port(t2), blob)])[0]
+    ref_one = ref.process_single(t1, blob)
+    status = port_domain.ImageStatus
+    assert one.result.status is status.COMPLETED, one.result.error
+    assert many.result.status is status.COMPLETED, many.result.error
+    assert sorted(one.result.processed_paths) == sorted(many.result.processed_paths)
+    assert one.result.processed_paths == ref_one.result.processed_paths
+    for kind, path in one.result.processed_paths.items():
+        a, _ = decode_image(s_port.get_object(path))
+        b, _ = decode_image(s_port.get_object(many.result.processed_paths[kind]))
+        c, _ = decode_image(s_ref.get_object(path))
+        assert a.shape == b.shape == c.shape, kind
+        exact = kind in ("crop", "flip", "rotate", "grayscale")
+        limit = (0 if exact else 1) if source == "png" else 2
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= limit, kind
+        assert np.abs(a.astype(int) - c.astype(int)).max() <= max(limit, 1), kind
+
+
+def test_process_single_failures(engines):
+    _, (port, _) = engines
+    status = port_domain.ImageStatus
+    r = port.process_single(to_port(make_task(DEFAULT)), b"not an image")
+    assert r.result.status is status.FAILED and r.error_kind == PERMANENT
+    assert "Failed to decode image" in r.result.error
+    r = port.process_single(
+        to_port(make_task([_op("crop", x=1, y=1)])), BLOBS[0])
+    assert r.result.status is status.FAILED and r.error_kind == PERMANENT
+    assert "Operation failed" in r.result.error
+
+
+def test_coefficient_route_falls_back_to_the_single_image_op(engines, monkeypatch):
+    """When the coefficient transform refuses at finish time, the item is
+    decoded from its scanned coefficients on the host and goes through
+    the single-image op: same dims, close pixels."""
+    from imageprocessor_tpu_torch.runtime import coeftx, hostcodec
+    _, (port, s_port) = engines
+    task = make_task([TRANSFORMS["rot90"]])
+    good = port.process_tasks([(to_port(task), BLOBS[0])])[0]
+
+    def refuse(ctx, prims):
+        raise hostcodec.HostCodecError("forced")
+
+    monkeypatch.setattr(coeftx, "apply", refuse)
+    n0 = _counter("engine_coeftx_images")
+    task2 = make_task([TRANSFORMS["rot90"]])
+    back = port.process_tasks([(to_port(task2), BLOBS[0])])[0]
+    assert back.result.status is port_domain.ImageStatus.COMPLETED, back.result.error
+    assert _counter("engine_coeftx_images") == n0
+    x, _ = decode_image(s_port.get_object(good.result.processed_paths["rotate"]))
+    y, _ = decode_image(s_port.get_object(back.result.processed_paths["rotate"]))
+    assert x.shape == y.shape == (400, 300, 3)
+    assert psnr(x, y) > 40.0

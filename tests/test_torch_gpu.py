@@ -1,5 +1,7 @@
-"""Kernels B1-B4 on the card against their plain PyTorch versions, and B1
-and B3 directly against the reference (the JAX package on CPU).
+"""Kernels B1-B4 on the card against their plain PyTorch versions, B1 and
+B3 directly against the reference (the JAX package on CPU), and the
+tensor ops of ops/extra.py (crop, flip, rotate, grayscale) and the
+single-image resamples on the card against their own CPU results.
 
 These need a CUDA card and nvcc (the kernels have no CPU mode); without a
 card they skip. B1 runs every subsampling at the edges of its tiling and
@@ -16,7 +18,11 @@ image's ceil16(valid) grid (FDCT summation order), against its plain
 version and against the reference's ``batched_encode_420``, and <= 1 step
 on at most 2 + n / 10000 coefficients of an n-coefficient plane against
 the float64 oracle ``encode_oracle`` (the bound that
-tests/test_torch_jpeg_encode.py holds the plain version to).
+tests/test_torch_jpeg_encode.py holds the plain version to); crop, flip,
+rotation by 90s and grayscale on the card equal to the CPU's result;
+rotation by another angle <= 1 LSB from it (the differing pixels are
+printed); ``resize_image`` and ``thumbnail_image`` launch B4 once each
+and equal the CPU's plain version.
 """
 
 import numpy as np
@@ -26,11 +32,14 @@ import torch
 from imageprocessor_tpu.ops import jpeg_decode as ref_dec
 from imageprocessor_tpu.ops import jpeg_encode as ref_enc
 from imageprocessor_tpu.runtime.splice import _fdct_quantize_rect
+from imageprocessor_tpu_torch.ops import extra
 from imageprocessor_tpu_torch.ops import fused_resample as fr
 from imageprocessor_tpu_torch.ops import jpeg_kernels
 from imageprocessor_tpu_torch.ops import planar_resample as pr
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
 from imageprocessor_tpu_torch.ops.jpeg_encode import encode_420_plain, quality_qtables
+from imageprocessor_tpu_torch.ops.resize import resize_image
+from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
 
 pytestmark = pytest.mark.gpu
 
@@ -262,3 +271,108 @@ def test_b4_matches_plain(cuda):
         torch.cuda.synchronize()
         assert pr.launches == n + 1
         assert torch.equal(got, fr.resample_plain(src, taps))
+
+
+# --- ops/extra.py and the single-image resamples ------------------------------
+
+EXTRA_DIMS = [(300, 400), (384, 512), (37, 53), (1, 1)]
+
+
+def _bucket(seed=9):
+    """A planar (4, 3, 384, 512) bucket over nonzero padding, with mixed
+    valid dims, an odd-sized image and a pad row."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(1, 256, (len(EXTRA_DIMS), 3, 384, 512),
+                                          dtype=np.uint8)),
+            np.array(EXTRA_DIMS, np.int32))
+
+
+BATCHED = {
+    "grayscale": lambda x, hw: extra.batched_grayscale_planar(x),
+    "flip_h": lambda x, hw: extra.batched_flip(x, hw, "horizontal"),
+    "flip_v": lambda x, hw: extra.batched_flip(x, hw, "vertical"),
+    "crop": lambda x, hw: extra.batched_crop(x, hw, 21, 13, 150, 100),
+    "crop_past_bucket": lambda x, hw: extra.batched_crop(x, hw, 400, 300, 512, 384),
+    "rot90": lambda x, hw: extra.batched_rotate(x, hw, 90),
+    "rot180": lambda x, hw: extra.batched_rotate(x, hw, 180),
+    "rot270": lambda x, hw: extra.batched_rotate(x, hw, 270),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BATCHED))
+def test_batched_extra_op_equals_cpu(cuda, name):
+    imgs, hw = _bucket()
+    want = BATCHED[name](imgs, hw)
+    got = BATCHED[name](imgs.to(cuda), hw)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("angle", [30.0, 123.4, 359.0])
+def test_batched_rotate_arbitrary_close_to_cpu(cuda, angle):
+    imgs, hw = _bucket()
+    want = extra.batched_rotate(imgs, hw, angle)
+    got = extra.batched_rotate(imgs.to(cuda), hw, angle).cpu()
+    diff = (got.int() - want.int()).abs()
+    print(f"rotate {angle}: {int((diff > 0).sum())} of {diff.numel()} values "
+          f"differ from the CPU's, max {int(diff.max())}")
+    assert int((diff > 1).sum()) <= 8   # validity mask at a boundary pixel
+    assert int((diff > 0).sum()) <= diff.numel() // 1000
+
+
+SINGLE = {
+    "crop": lambda x: extra.crop_image(x, 21, 13, 150, 100),
+    "flip_h": lambda x: extra.flip_image(x, "horizontal"),
+    "flip_v": lambda x: extra.flip_image(x, "vertical"),
+    "rot90": lambda x: extra.rotate_image(x, 90),
+    "rot270": lambda x: extra.rotate_image(x, 270),
+    "grayscale": lambda x: extra.grayscale_image(x),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SINGLE))
+def test_single_extra_op_equals_cpu(cuda, name):
+    img = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 256, (301, 403, 3), dtype=np.uint8))
+    got = SINGLE[name](img.to(cuda))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), SINGLE[name](img))
+
+
+def test_grayscale_bucket_goes_into_b3_in_place(cuda):
+    """The gray bucket on the card, sliced as the engine slices it, is
+    read by B3 where it lies and encodes as the plain version does
+    (<= 1 step)."""
+    imgs, hw = _bucket()
+    gray = extra.batched_grayscale_planar(imgs.to(cuda))
+    view = gray[:, :, :304, :400]
+    assert jpeg_kernels._aligned_rgb(view) is view
+    vh = torch.from_numpy(np.minimum(hw, (304, 400)).astype(np.int32)).to(cuda)
+    qt = torch.from_numpy(quality_qtables(85).astype(np.float32)).to(cuda)
+    n = jpeg_kernels.encode_launches
+    got = jpeg_kernels.encode_420(view, vh, qt)
+    want = encode_420_plain(view, vh, qt)
+    torch.cuda.synchronize()
+    assert jpeg_kernels.encode_launches == n + 1
+    for g, w, div in zip(got, want, (1, 2, 2)):
+        for i, (h, wd) in enumerate(np.minimum(hw, (304, 400))):
+            gh, gw = -(-h // 16) * 16 // div, -(-wd // 16) * 16 // div
+            assert (g[i, :gh, :gw].int() - w[i, :gh, :gw].int()).abs().max() <= 1
+
+
+@pytest.mark.parametrize("what", ["resize", "resize_keep_aspect", "thumbnail_crop",
+                                  "thumbnail_aspect"])
+def test_single_image_resample_launches_b4(cuda, what):
+    img = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (300, 400, 3), dtype=np.uint8))
+    fn = {"resize": lambda x: resize_image(x, 128, 96),
+          "resize_keep_aspect": lambda x: resize_image(x, 1024, 768, True),
+          "thumbnail_crop": lambda x: thumbnail_image(x, 200, True),
+          "thumbnail_aspect": lambda x: thumbnail_image(x, 64, False)}[what]
+    n = pr.launches
+    got = fn(img.to(cuda))
+    torch.cuda.synchronize()
+    assert pr.launches == n + 1
+    want = fn(img)
+    assert pr.launches == n + 1   # the CPU call launches nothing
+    assert torch.equal(got.cpu(), want)

@@ -26,6 +26,8 @@ from imageprocessor_tpu_torch.ops import jpeg_kernels
 from imageprocessor_tpu_torch.ops import planar_resample as pr
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
 from imageprocessor_tpu_torch.ops.jpeg_encode import encode_420_plain
+from imageprocessor_tpu_torch.ops.resize import resize_image
+from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "imageprocessor_tpu_torch"
@@ -49,7 +51,11 @@ def test_imports_succeed_with_jax_blocked():
             "imageprocessor_tpu_torch.runtime.splice",
             "imageprocessor_tpu_torch.runtime.hostcodec",
             "imageprocessor_tpu_torch.ops.jpeg_encode",
-            "imageprocessor_tpu_torch.ops.planar_resample", "chip_smoke",
+            "imageprocessor_tpu_torch.ops.planar_resample",
+            "imageprocessor_tpu_torch.ops.extra",
+            "imageprocessor_tpu_torch.ops.resize",
+            "imageprocessor_tpu_torch.ops.thumbnail",
+            "imageprocessor_tpu_torch.runtime.coeftx", "chip_smoke",
             *_chip_smoke_imports()]
     assert "imageprocessor_tpu_torch.runtime.engine" in mods
     code = textwrap.dedent(f"""
@@ -112,6 +118,13 @@ def test_cpu_tensors_take_the_plain_path_and_others_raise():
     for x, y in zip(jpeg_kernels.encode_420(out, vh, qt2),
                     encode_420_plain(out, vh, qt2)):
         assert torch.equal(x, y)
+    # the single-image resamples are one-image calls of planar_resample
+    img = out[0].permute(1, 2, 0).contiguous()
+    small = resize_image(img, 8, 6)
+    assert tuple(small.shape) == (6, 8, 3)
+    taps86 = fr.make_taps(np.array([[16, 16]]), np.array([[6, 8]]), (6, 8), (16, 16))
+    assert torch.equal(small.permute(2, 0, 1)[None], fr.resample_plain(out, taps86))
+    assert tuple(thumbnail_image(img, 4, crop_to_fit=True).shape) == (4, 4, 3)
     assert counts == (jpeg_kernels.launches, jpeg_kernels.encode_launches,
                       fr.launches, pr.launches)
     meta = [t.to("meta") for t in (yc, cb, cr, qt, cv)]
@@ -123,6 +136,8 @@ def test_cpu_tensors_take_the_plain_path_and_others_raise():
         pr.planar_resample(out.to("meta"), taps.to("meta"))
     with pytest.raises(ValueError, match="device"):
         jpeg_kernels.encode_420(out.to("meta"), vh.to("meta"), qt2.to("meta"))
+    with pytest.raises(ValueError, match="device"):
+        resize_image(img.to("meta"), 8, 6)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -7,7 +7,7 @@ metrics. Every top-level import, function, class and constant of a copy
 must have the same source as the original's once the package name is
 swapped back, and a copy may leave out only the names listed in OMITTED.
 
-Two copies differ in named places:
+Three copies differ in named places:
 
 * runtime/codecs.py has no libjpeg shim (runtime/nativecodec.py): it
   imports the port's host library (runtime/hostcodec.py) in its place,
@@ -19,7 +19,13 @@ Two copies differ in named places:
   round their FDCTs differently);
 * runtime/splice.py imports runtime/hostcodec.py and the port's
   ops/watermark.py where the original imports nativecodec and the
-  reference's ops/watermark.py; only its import lines may differ.
+  reference's ops/watermark.py; only its import lines may differ;
+* runtime/coeftx.py imports the port's domain, splice and host library,
+  and its ``_rot_native`` returns None: the reference's calls a blocked
+  rotation kernel of its libjpeg shim, which the port's host library
+  (built without libjpeg) does not have, so ``apply`` takes the numpy
+  path that the reference keeps as its behavioural reference
+  (tests/test_torch_coeftx.py holds the results equal).
 """
 
 import ast
@@ -41,17 +47,18 @@ COPIES = ["domain/__init__.py", "domain/image.py", "domain/task.py", "errors.py"
           "broker/base.py", "broker/memory.py", "storage/object_store.py",
           "storage/localfs.py", "storage/metadata.py", "storage/sqlite_meta.py",
           "runtime/batcher.py", "runtime/codecs.py", "runtime/splice.py",
-          "utils/metrics.py"]
+          "runtime/coeftx.py", "utils/metrics.py"]
 # names of the original a copy leaves out: factories of backends the port
 # lacks
 OMITTED = {"broker/base.py": {"build_broker"},
            "storage/object_store.py": {"build_object_store"},
            "storage/metadata.py": {"build_metadata_store"}}
 DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
-                                 "decode_image", "encode_image"}}
+                                 "decode_image", "encode_image"},
+           "runtime/coeftx.py": {"_rot_native"}}
 # copies whose top-level imports are their own (the host library in place
 # of nativecodec); every other top-level name keeps the original's source
-OWN_IMPORTS = {"runtime/splice.py"}
+OWN_IMPORTS = {"runtime/splice.py", "runtime/coeftx.py"}
 
 
 def _top_level(path: Path, rename: bool) -> dict[str, str]:
