@@ -127,9 +127,10 @@ Phases (any failure exits non-zero):
    truncated JPEG -> failed, acked, worker_failed_permanent; a
    torch.OutOfMemoryError raised out of device_group once -> nacked,
    redelivered and completed, worker_failed_transient;
-16. latency — the reference bench's latency run on the port: 60 uploads
-   of a 480 x 640 JPEG with a 3000 x 4000 one every tenth, default plan,
-   batch_size 16, batch_deadline_ms 25, arrivals at 200/s through
+16. latency — the reference bench's latency run on the port, through the
+   port bench's ``bench_latency``: 60 uploads of a 480 x 640 JPEG with a
+   3000 x 4000 one every tenth, default plan, batch_size 16,
+   batch_deadline_ms 25, arrivals at 200/s through
    ImageUsecase.upload_image -> MemoryBroker -> worker, latency from
    produce to the results topic, after a warm-up of each bucket and batch
    size. It prints p50, p95, p99 and images/s for the batch worker and
@@ -138,7 +139,18 @@ Phases (any failure exits non-zero):
    beside them, then repeats the pipelined run under
    utils/tracing.profile_capture and prints the share of the window in
    which the card ran a kernel or a copy. Nothing is asserted about the
-   values.
+   values;
+17. bench — ``python3 -m imageprocessor_tpu_torch.bench`` as a child
+   process with no DEVICE_PLATFORM, at full shapes, with a time limit: it
+   must exit 0 and print as its last line one JSON object with every key
+   the bench documents (``bench.KEYS``), platform "cuda",
+   psnr_db_vs_oracle above 45 dB and device_splice_step_images_per_sec
+   within 25 % of phase 6's decode -> resample step (both time B1 -> B2
+   with CUDA events); the line is printed. The child's launch counts stay
+   in its process, so the bench's splice-off step
+   (bench_device_jpeg_step, B1 -> B2 -> blend -> B3) and its PSNR check
+   (B4) then run in process at the --smoke shape, with every launch count
+   set to 0 before and read after: B1, B2, B3 and B4 must each launch.
 
 B2's and B4's bounds are counted twice: by the bytes their taps touch,
 and by the 32-byte sectors those bytes lie in (the card's memory moves
@@ -147,14 +159,15 @@ The sector count is the bound; the byte count is printed beside it.
 
 The watermark's font is the reference's lookup (IMAGEPROCESSOR_FONT, the
 reference package's assets/fonts, matplotlib's DejaVu Sans); where none
-of those exists, phase 1 points IMAGEPROCESSOR_FONT at a TrueType font
-found on the host, or at Pillow's bundled default font written under
-build/, and prints which.
+of those exists, phase 1 (the bench's ``ensure_font``) points
+IMAGEPROCESSOR_FONT at a TrueType font found on the host, or at Pillow's
+bundled default font written under build/, and prints which. Device
+times come from the bench's ``time_ms`` (CUDA events on a busy stream).
 
 The line before the last is the card's name and power limit as
 nvidia-smi gives them, the one before it a JSON summary of the kernels
-(launches on the main paths, phase 15's HTTP uploads among them, max
-error, ms, plain_ms, bound_ms, bound_by,
+(launches on the main paths, phase 15's HTTP uploads and phase 17's
+bench steps among them, max error, ms, plain_ms, bound_ms, bound_by,
 roofline_share, byte_bound_ms, and library_ms: null, since no single
 PyTorch call computes any of the four functions); the last line is
 {"ok": true, "device": {...}}. Only imageprocessor_tpu_torch
@@ -163,7 +176,6 @@ is imported: neither jax nor the reference package imageprocessor_tpu.
 
 from __future__ import annotations
 
-import glob
 import io
 import json
 import math
@@ -186,6 +198,7 @@ LSB_LIMIT = 1
 STEP_LIMIT = 1                   # B3: quantization steps
 WM_MARGIN = 32                   # px past the text box a watermark may touch
 SINGLE_PSNR_DB = 45.0            # single-image vs batched JPEG artifacts (phase 12)
+BENCH_PSNR_DB = 45.0             # the bench's resample against the Go oracle (phase 17)
 HBM_BYTES_S = 3.35e12            # H100 SXM device memory, bytes/s (data sheet)
 FP32_FLOP_S = 67e12              # H100 SXM FP32 outside the tensor cores
 MODES = ((2, 2), (1, 2), (2, 1), (1, 1))   # 4:2:0, 4:2:2, 4:4:0, 4:4:4
@@ -197,34 +210,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device ms per call of fn, by CUDA events. The stream is first held
-    busy (~30 ms) so the host enqueues every call before the device
-    reaches the first event: a call that never waits on the device is
-    timed without the host's launch overhead. A call that synchronizes
-    (a pageable host-to-device copy) still waits, so its time includes
-    the host's share."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor, dims) -> int:
@@ -393,48 +378,6 @@ def photo(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def load_oracle():
-    """tests/oracle.py: the repo's float64 oracle of the Go reference."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "ip_oracle", os.path.join(REPO, "tests", "oracle.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def ensure_font(wm) -> str:
-    """The watermark font: the reference's lookup when it finds one, else
-    a TrueType font on the host (DejaVu Sans first), else Pillow's bundled
-    default font written under build/. Sets IMAGEPROCESSOR_FONT for the
-    last two."""
-    try:
-        path = wm._default_font_path()
-        if os.path.exists(path):
-            return path
-    except ImportError:   # no matplotlib: the reference's last fallback
-        pass
-    import site
-
-    roots = ["/usr/share/fonts", "/usr/local/share/fonts", *site.getsitepackages()]
-    found = sorted({f for r in roots
-                    for f in glob.glob(os.path.join(r, "**", "*.ttf"), recursive=True)},
-                   key=lambda f: (os.path.basename(f) != "DejaVuSans.ttf", f))
-    if found:
-        path = found[0]
-    else:
-        from PIL import ImageFont
-
-        path = os.path.join(REPO, "build", "fonts", "pillow-default.ttf")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "wb") as f:
-            f.write(ImageFont.load_default(36).font_bytes)
-    os.environ["IMAGEPROCESSOR_FONT"] = path
-    wm._DEFAULT_FONT_PATH = None
-    return wm._default_font_path()
-
-
 def rgb_case(dims, h, w, seed, pad_to=0):
     """Seeded (B, 3, h, w) u8 canvases and valid dims; pad rows get (1, 1)
     the way the engine passes them to B3."""
@@ -528,10 +471,6 @@ def png(img: np.ndarray) -> bytes:
 def image_size(data: bytes) -> tuple[int, int]:
     """(width, height) of an encoded image."""
     return PILImage.open(io.BytesIO(data)).size
-
-
-def percentile(sorted_vals, p: float) -> float:
-    return sorted_vals[min(int(len(sorted_vals) * p), len(sorted_vals) - 1)]
 
 
 def kernel_counters():
@@ -954,158 +893,97 @@ def phase_workers(blobs, png_blob) -> dict:
     return total
 
 
-def phase_latency(small_blob: bytes, big_blob: bytes, card: str) -> dict:
-    """Phase 16: queue-to-processed latency under arrival, the shape of
-    the reference bench's latency run: 60 uploads of a 480 x 640 JPEG with
-    a 3000 x 4000 one every tenth, default plan, batch_size 16,
-    batch_deadline_ms 25, arrivals at 200/s through
-    ImageUsecase.upload_image -> MemoryBroker -> worker; latency from
-    produce to the result on the results topic. Each bucket and batch size
-    is warmed first. Nothing is asserted about the values."""
-    import threading
-
-    from imageprocessor_tpu_torch.broker import MemoryBroker
-    from imageprocessor_tpu_torch.config import load
-    from imageprocessor_tpu_torch.domain import (
-        OperationParams,
-        OperationType,
-        ProcessingResult,
-    )
+def phase_latency(card: str) -> dict:
+    """Phase 16: queue-to-processed latency under arrival, the reference
+    bench's latency run through the port bench's ``bench_latency``: 60
+    uploads of a 480 x 640 JPEG with a 3000 x 4000 one every tenth,
+    default plan, batch_size 16, batch_deadline_ms 25, arrivals at 200/s
+    through ImageUsecase.upload_image -> MemoryBroker -> worker; latency
+    from produce to the result on the results topic. Each bucket and batch
+    size is warmed first. The batch worker, the pipelined worker, and the
+    pipelined worker under profile_capture. Nothing is asserted about the
+    values."""
+    from imageprocessor_tpu_torch.bench import bench_latency
     from imageprocessor_tpu_torch.service.pipelined import PipelinedWorker
-    from imageprocessor_tpu_torch.service.usecase import ImageUsecase
     from imageprocessor_tpu_torch.service.worker import Worker
-    from imageprocessor_tpu_torch.storage import (
-        LocalFSObjectStore,
-        SQLiteMetadataStore,
-    )
-    from imageprocessor_tpu_torch.utils.metrics import METRICS
-    from imageprocessor_tpu_torch.utils.tracing import profile_capture
-
-    n_images, big_every, rate = 60, 10, 200.0
-    ops = [OperationParams(OperationType.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
-           OperationParams(OperationType.RESIZE, {"width": 1024, "height": 768,
-                                                  "keep_aspect": True})]
-    stage_keys = ("queue_wait_ms", "batcher_wait_ms", "engine_pack_ms",
-                  "engine_device_ms", "span_decode_ms", "span_device_ms",
-                  "span_encode_ms", "worker_batch_ms")
-
-    def run(kind, cls, traced: bool) -> dict:
-        root = tempfile.mkdtemp(prefix=f"chip_smoke-lat-{kind}-",
-                                dir=os.path.join(REPO, "build"))
-        cfg = load({k: v for k, v in os.environ.items() if k != "DEVICE_PLATFORM"})
-        cfg.worker.batch_size = 16
-        cfg.worker.batch_deadline_ms = 25.0
-        meta = SQLiteMetadataStore(":memory:")
-        store = LocalFSObjectStore(os.path.join(root, "objects"))
-        broker = MemoryBroker()
-        uc = ImageUsecase(meta, store, broker)
-        worker = cls(cfg, meta=meta, store=store, broker=broker)
-        worker._idle_sleep = 0.002
-        try:
-            # warm every (bucket, quantized batch size) the load can form
-            for data, copies in ((small_blob, (16, 8, 4, 2, 1)), (big_blob, (4, 2, 1))):
-                for n in copies:
-                    for i in range(n):
-                        uc.upload_image(data, f"warm{n}-{i}.jpg", "image/jpeg", ops)
-                    while worker.run_once(max_n=n) > 0:
-                        pass
-            while broker.poll("image-processed", "lat", max_n=1000):
-                pass
-            METRICS.reset()
-            t_start, t_done, is_big = {}, {}, {}
-            stop = threading.Event()
-
-            def timed_done() -> int:
-                return sum(1 for k in list(t_done) if k in t_start)
-
-            def consume():
-                while not stop.is_set() and timed_done() < n_images:
-                    for msg in broker.poll("image-processed", "lat", max_n=32):
-                        res = ProcessingResult.from_json(msg.value)
-                        t_done.setdefault(res.image_id, time.monotonic())
-                        broker.ack(msg)
-                    time.sleep(0.001)
-
-            def load_phase():
-                worker_t = threading.Thread(target=worker.run, daemon=True)
-                results_t = threading.Thread(target=consume, daemon=True)
-                worker_t.start()
-                results_t.start()
-                for i in range(n_images):
-                    big_one = (i + 1) % big_every == 0
-                    img = uc.upload_image(big_blob if big_one else small_blob,
-                                          f"l{i}.jpg", "image/jpeg", ops)
-                    t_start[img.id] = time.monotonic()
-                    is_big[img.id] = big_one
-                    time.sleep(1.0 / rate)
-                wait_until(lambda: timed_done() >= n_images,
-                           f"{kind}: the {n_images} timed results", timeout=300)
-                worker.stop()
-                stop.set()
-                results_t.join(timeout=30)
-                worker_t.join(timeout=120)
-                if worker_t.is_alive() or results_t.is_alive():
-                    fail(f"{kind}: the latency run's threads did not stop")
-
-            busy_share = None
-            if traced:
-                trace_dir = os.path.join(root, "trace")
-                with profile_capture(trace_dir):
-                    load_phase()
-                # the card's own events in the Chrome trace: kernels and
-                # copies (one stream, so their durations do not overlap)
-                with open(glob.glob(os.path.join(trace_dir, "*.json"))[0]) as f:
-                    events = json.load(f)["traceEvents"]
-                busy_us = sum(e.get("dur", 0) for e in events if e.get("cat") in (
-                    "kernel", "gpu_memcpy", "gpu_memset"))
-                window = max(t_done.values()) - min(t_start.values())
-                if busy_us > 0:
-                    busy_share = busy_us / 1e6 / window
-            else:
-                load_phase()
-            lat = sorted((t_done[k] - t_start[k]) * 1000.0 for k in t_start)
-            small = sorted((t_done[k] - t_start[k]) * 1000.0
-                           for k in t_start if not is_big[k])
-            window = max(t_done[k] for k in t_start) - min(t_start.values())
-            snap = METRICS.snapshot()
-            if snap["counters"].get("worker_completed", 0) != n_images:
-                fail(f"{kind}: worker_completed "
-                     f"{snap['counters'].get('worker_completed')} of {n_images}")
-            return {"worker": kind, "traced": traced, "n": n_images,
-                    "p50_ms": percentile(lat, 0.50), "p95_ms": percentile(lat, 0.95),
-                    "p99_ms": percentile(lat, 0.99), "max_ms": lat[-1],
-                    "small_p50_ms": percentile(small, 0.50),
-                    "small_p99_ms": percentile(small, 0.99),
-                    "images_per_s": n_images / window,
-                    "device_busy_share": busy_share,
-                    "stages": {k: {f: snap["timings"][k][f]
-                                   for f in ("count", "p50", "p99", "max")}
-                               for k in stage_keys if k in snap["timings"]}}
-        finally:
-            worker.close()
-            shutil.rmtree(root, ignore_errors=True)
 
     results = []
     for kind, cls, traced in (("batch", Worker, False),
                               ("pipelined", PipelinedWorker, False),
                               ("pipelined", PipelinedWorker, True)):
-        r = run(kind, cls, traced)
-        results.append(r)
+        r = bench_latency(torch.device("cuda"), cls, traced=traced)
+        results.append({"worker": kind, "traced": traced, **r})
         idle = ("" if not traced else
                 "; device idle share not measured (the profiler showed no device time)"
                 if r["device_busy_share"] is None else
                 f"; device busy {r['device_busy_share']:.4f} of the window "
                 f"(idle share {1 - r['device_busy_share']:.4f}, torch.profiler)")
         log(f"[16 latency] {card}: {kind} worker{' under torch.profiler' if traced else ''}"
-            f", {n_images} uploads at {rate:.0f}/s (480x640, a 3000x4000 every "
-            f"{big_every}th), batch 16, deadline 25 ms: p50 {r['p50_ms']:.1f} ms, "
-            f"p95 {r['p95_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, max "
-            f"{r['max_ms']:.1f} ms (480x640 alone: p50 {r['small_p50_ms']:.1f}, p99 "
-            f"{r['small_p99_ms']:.1f} ms); {r['images_per_s']:.2f} images/s over the "
-            f"window (host clock){idle}; stages: " + "; ".join(
+            f", {r['n']} uploads at 200/s (480x640, a 3000x4000 every 10th), batch 16, "
+            f"deadline 25 ms: p50 {r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
+            f"{r['p99_ms']:.1f} ms, max {r['max_ms']:.1f} ms (480x640 alone: p50 "
+            f"{r['small_p50_ms']:.1f}, p99 {r['small_p99_ms']:.1f} ms); "
+            f"{r['images_per_sec']:.2f} images/s over the window (host clock){idle}; "
+            f"stages: " + "; ".join(
                 f"{k} n={v['count']} p50={v['p50']:.1f} p99={v['p99']:.1f} max={v['max']:.1f}"
-                for k, v in r["stages"].items()))
+                for k, v in r["stages_ms"].items()))
     return {"latency": results}
+
+
+def phase_bench(card: str, step_ms: float) -> dict:
+    """Phase 17: ``python3 -m imageprocessor_tpu_torch.bench`` as a child
+    process with no DEVICE_PLATFORM, then its splice-off step and its PSNR
+    check in process at the --smoke shape with the launch counts set to 0
+    before and read after. step_ms: phase 6's decode -> resample step.
+    Returns the launches of the in-process run."""
+    from imageprocessor_tpu_torch import bench
+
+    env = {k: v for k, v in os.environ.items() if k != "DEVICE_PLATFORM"}
+    env["PYTHONPATH"] = REPO
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "imageprocessor_tpu_torch.bench"],
+                              cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=300)
+    except subprocess.TimeoutExpired as exc:
+        fail(f"the bench did not finish in {exc.timeout:.0f} s")
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail(f"the bench exited with {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if set(line) != set(bench.KEYS):
+        fail(f"the bench's keys differ from bench.KEYS: "
+             f"{sorted(set(line) ^ set(bench.KEYS))}")
+    composed = B * 1000.0 / step_ms
+    off = abs(line["device_splice_step_images_per_sec"] - composed) / composed
+    if line["platform"] != "cuda" or line["psnr_db_vs_oracle"] <= BENCH_PSNR_DB \
+            or off > 0.25:
+        fail(f"the bench: platform {line['platform']}, PSNR "
+             f"{line['psnr_db_vs_oracle']} dB, splice step "
+             f"{line['device_splice_step_images_per_sec']:.1f} images/s against phase "
+             f"6's {composed:.1f} ({off:.3f} off, limit 0.25)")
+    log(f"[17 bench] {card}: python3 -m imageprocessor_tpu_torch.bench exited 0 in "
+        f"{wall:.1f} s (host clock); every documented key, platform cuda, PSNR "
+        f"{line['psnr_db_vs_oracle']:.2f} dB, splice step "
+        f"{line['device_splice_step_images_per_sec']:.1f} images/s, {off:.3f} from "
+        f"phase 6's {composed:.1f}; its line:")
+    log(json.dumps(line))
+
+    counters = kernel_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    cuda = torch.device("cuda")
+    geo = {k: bench.SMOKE[k] for k in bench.GEOMETRY}
+    step = bench.bench_device_jpeg_step(cuda, bench.SMOKE["batch"], False,
+                                        iters=bench.SMOKE["iters"], **geo)
+    db, _ = bench.quick_psnr_check(cuda)
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    if any(v == 0 for v in counts.values()) or db <= BENCH_PSNR_DB:
+        fail(f"the bench's steps in process: launches {counts}, PSNR {db:.2f} dB")
+    log(f"[17 bench] in process at the --smoke shape: splice-off step "
+        f"{step['device_jpeg_step_images_per_sec']:.1f} images/s, PSNR {db:.2f} dB; "
+        f"launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -1115,6 +993,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from imageprocessor_tpu_torch import kernels
+    from imageprocessor_tpu_torch.bench import card_line, ensure_font, load_oracle, time_ms
     from imageprocessor_tpu_torch.broker import MemoryBroker
     from imageprocessor_tpu_torch.domain import (
         KAFKA_GROUP_ID,
@@ -1167,7 +1046,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[1 device] {name}; nvidia-smi: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log(f"[1 device] watermark font: {ensure_font(wm)}")
+    log(f"[1 device] watermark font: {ensure_font()}")
 
     # ---- 2. build
     t0 = time.monotonic()
@@ -2165,8 +2044,11 @@ def main() -> int:
     png_blob = png(sources[9][0])
     phase_entry_point(blobs, png_blob, oracle)
     svc_launches = phase_workers(blobs, png_blob)
-    latency = phase_latency(blobs[9], blobs[0], card)
+    latency = phase_latency(card)
     log(json.dumps(latency))
+
+    # ---- 17. the bench
+    bench_launches = phase_bench(card, step_ms)
 
     def row(name, key, source, replaces, phase, launched, err, ms, plain, b):
         # library_ms: no single PyTorch call computes any of the four:
@@ -2177,10 +2059,11 @@ def main() -> int:
                 "source": f"imageprocessor_tpu_torch/csrc/{source}",
                 "replaces": f"imageprocessor_tpu/ops/{replaces}",
                 "launches": (launched + tx_launches[key] + single_launches[key]
-                             + svc_launches[key]),
+                             + svc_launches[key] + bench_launches[key]),
                 "launches_by_phase": {phase: launched, "11": tx_launches[key],
                                       "12": single_launches[key],
-                                      "15": svc_launches[key]},
+                                      "15": svc_launches[key],
+                                      "17": bench_launches[key]},
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
                 "roofline_share": b["ms"] / ms,

@@ -449,3 +449,27 @@ def test_worker_launches_the_kernels_on_the_card(cuda, tmp_path, monkeypatch, ki
         worker.close()
     after = (jpeg_kernels.launches, fr.launches, jpeg_kernels.encode_launches)
     assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+def test_bench_smoke_on_card(cuda, tmp_path, monkeypatch, capsys):
+    """The port's bench at its --smoke shape on the card, with no
+    DEVICE_PLATFORM: one JSON line, platform cuda, and the card's name
+    (an NVIDIA part) with its power limit."""
+    import json
+
+    from PIL import ImageFont
+
+    from imageprocessor_tpu_torch import bench
+    from imageprocessor_tpu_torch.ops import watermark as wm
+
+    monkeypatch.delenv("DEVICE_PLATFORM", raising=False)
+    font = tmp_path / "pillow-default.ttf"
+    font.write_bytes(ImageFont.load_default(36).font_bytes)
+    monkeypatch.setenv("IMAGEPROCESSOR_FONT", str(font))
+    monkeypatch.setattr(wm, "_DEFAULT_FONT_PATH", None)
+    assert bench.main(["--smoke"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == set(bench.KEYS)
+    assert out["platform"] == "cuda"
+    assert "NVIDIA" in out["card"] and out["card"].endswith("W"), out["card"]
+    assert out["psnr_db_vs_oracle"] > 45.0

@@ -5,7 +5,8 @@ The first test imports every module of the package (the service layer,
 the config, the client and the utils included), chip_smoke.py and every
 module it imports in a fresh interpreter where ``import jax`` and
 ``import imageprocessor_tpu`` fail (``sys.modules[...] = None``), runs
-``python -m imageprocessor_tpu_torch.service --help`` there too, then
+``python -m imageprocessor_tpu_torch.service --help`` and
+``python -m imageprocessor_tpu_torch.bench --help`` there too, then
 checks that no module of either got loaded.
 """
 
@@ -55,7 +56,7 @@ def _package_modules() -> list[str]:
 
 def test_imports_succeed_with_jax_blocked():
     mods = [*_package_modules(), "chip_smoke", *_chip_smoke_imports()]
-    for must in ("runtime.engine", "config", "client", "utils.tracing",
+    for must in ("bench", "runtime.engine", "config", "client", "utils.tracing",
                  "utils.watchdog", "broker.sqlitebroker", "service",
                  "service.__main__", "service.app", "service.handlers",
                  "service.usecase", "service.worker", "service.pipelined"):
@@ -67,11 +68,13 @@ def test_imports_succeed_with_jax_blocked():
         sys.path.insert(0, {str(REPO)!r})
         for m in {mods!r}:
             importlib.import_module(m)
+        from imageprocessor_tpu_torch.bench import main as bench_main
         from imageprocessor_tpu_torch.service.__main__ import main
-        try:
-            main(["--help"])
-        except SystemExit as done:
-            assert done.code == 0
+        for entry in (main, bench_main):
+            try:
+                entry(["--help"])
+            except SystemExit as done:
+                assert done.code == 0
         loaded = [m for m in sys.modules if sys.modules[m] and m.split(".")[0]
                   in ("jax", "jaxlib", "imageprocessor_tpu")]
         assert not loaded, loaded
