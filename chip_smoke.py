@@ -177,7 +177,24 @@ Phases (any failure exits non-zero):
    batches with the host library's CRC-32C, and the ``api`` and
    ``kafkaserver`` children exit 0 on SIGTERM. It prints (a)'s drain time,
    (b)'s p50/p99 upload -> completion on image-processed, the rebalance
-   gap and the launches, each beside the card's name and power limit.
+   gap and the launches, each beside the card's name and power limit;
+19. routes and replicas — phase 5's sources with the default plan and a
+   flip plan, IMAGEPROCESSOR_JPEG_SPLICE=0. (a) An engine built with
+   IMAGEPROCESSOR_DEVICE_JPEG=0 takes every JPEG through the host decoder
+   (layout "hwc"): B1 and B3 must launch 0 times, B2 must launch on the
+   default plan, and its thumbnail and resize of the sources up to
+   1920 x 1080 must sit within 1 LSB of the float64 Go oracle on the
+   host-decoded pixels; the warm engine_images_per_sec with 0 and unset
+   is printed side by side with the host's usable cores. (b) The host
+   library's coef_rot_i16 equals runtime/coeftx.py's numpy path bit for
+   bit on a 12 MP luma plane in all three modes, and the rot90 transform
+   of one 12 MP JPEG is timed with the native pass and the numpy path.
+   (c) A Worker asked for DEVICE_DATA_AXIS above the card count raises
+   naming the variable; an engine with two replicas on cuda:0 (two
+   streams, two threads, each group whole on one) gives the one-replica
+   engine's artifacts byte for byte, each replica having run groups;
+   with two cards or more, so does data_axis=2 over two cards, each
+   card's launches counted (else one line says it was skipped).
 
 B2's and B4's bounds are counted twice: by the bytes their taps touch,
 and by the 32-byte sectors those bytes lie in (the card's memory moves
@@ -194,7 +211,7 @@ times come from the bench's ``time_ms`` (CUDA events on a busy stream).
 The line before the last is the card's name and power limit as
 nvidia-smi gives them, the one before it a JSON summary of the kernels
 (launches on the main paths, phase 15's HTTP uploads, phase 17's bench
-steps and phase 18's Kafka tasks among them, max error, ms, plain_ms, bound_ms, bound_by,
+steps, phase 18's Kafka tasks and phase 19's runs among them, max error, ms, plain_ms, bound_ms, bound_by,
 roofline_share, byte_bound_ms, and library_ms: null, since no single
 PyTorch call computes any of the four functions); the last line is
 {"ok": true, "device": {...}}. Only imageprocessor_tpu_torch
@@ -203,6 +220,7 @@ is imported: neither jax nor the reference package imageprocessor_tpu.
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
 import math
@@ -1488,7 +1506,243 @@ def phase_topology(card: str, oracle) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main() -> int:
+# ------------------------------------------------------ routes and replicas
+
+def phase_routes(card: str, oracle, blobs: list) -> dict:
+    """Phase 19: the device-JPEG switch, the native coefficient rotation
+    and the engine's replicas, on phase 5's sources (the 12 MP group among
+    them) with the default plan and a flip plan, the splice off so that
+    the flip's JPEG renditions reach the device. Each engine run is a warm
+    call after a first one; every launch count is set to 0 just before
+    each run and read just after. Returns the launches of the runs."""
+    from imageprocessor_tpu_torch import kernels
+    from imageprocessor_tpu_torch.config import load
+    from imageprocessor_tpu_torch.domain import (
+        ImageStatus,
+        OperationParams,
+        OperationType,
+        ProcessingTask,
+    )
+    from imageprocessor_tpu_torch.models.plan import normalize_operations
+    from imageprocessor_tpu_torch.runtime import coeftx, hostcodec, splice
+    from imageprocessor_tpu_torch.runtime.batcher import BatchItem, group_items
+    from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
+    from imageprocessor_tpu_torch.service.worker import Worker
+
+    counters = kernel_counters()
+    launched = dict.fromkeys(KERNEL_KEYS, 0)
+
+    def counted(fn):
+        """fn() with every launch count set to 0 before; -> (result,
+        launches), the launches added to the phase's."""
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        out = fn()
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        for k, v in got.items():
+            launched[k] += v
+        return out, got
+
+    class Store:
+        def __init__(self):
+            self.blobs: dict[str, bytes] = {}
+
+        def save_processed(self, path, data, mime=None):
+            self.blobs[path] = data
+
+    P, T = OperationParams, OperationType
+    plans = {"default": [P(T.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
+                         P(T.RESIZE, {"width": 1024, "height": 768,
+                                      "keep_aspect": True})],
+             "flip": [P(T.FLIP, {"direction": "vertical"})]}
+
+    def run(engine, ops):
+        """A first and a warm process_tasks of the sources; -> (the warm
+        run's artifacts, its images/s on the host clock)."""
+        def once():
+            engine.store.blobs.clear()
+            t0 = time.monotonic()
+            res = engine.process_tasks([
+                (ProcessingTask(id=f"t{k}", image_id=f"i{k}", original_path="o",
+                                bucket="images", operations=ops, format="jpeg"), b)
+                for k, b in enumerate(blobs)])
+            wall = time.monotonic() - t0
+            for r in res:
+                if r.result.status is not ImageStatus.COMPLETED:
+                    fail(f"phase 19: {r.result.error}")
+            return wall
+        once()
+        wall = once()
+        return dict(engine.store.blobs), len(blobs) / wall
+
+    engines = []
+    os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "0"
+    try:
+        # (a) IMAGEPROCESSOR_DEVICE_JPEG=0: JPEG decode and encode on the host
+        os.environ["IMAGEPROCESSOR_DEVICE_JPEG"] = "0"
+        off = TorchProcessingEngine(Store(), device="cuda", batch_size=B)
+        engines.append(off)
+        os.environ.pop("IMAGEPROCESSOR_DEVICE_JPEG")
+        on = TorchProcessingEngine(Store(), device="cuda", batch_size=B)
+        engines.append(on)
+        if off.device_jpeg is not False or on.device_jpeg is not True:
+            fail("phase 19: IMAGEPROCESSOR_DEVICE_JPEG was not honoured")
+        rates = {}
+        for name, ops in plans.items():
+            (_, rates[name, 0]), got = counted(lambda: run(off, ops))
+            if got["B1"] or got["B3"] or (name == "default" and not got["B2"]):
+                fail(f"phase 19 {name}, DEVICE_JPEG=0: launches {got}")
+            (_, rates[name, 1]), got1 = counted(lambda: run(on, ops))
+            if not got1["B1"] or (name == "flip" and not got1["B3"]):
+                fail(f"phase 19 {name}, DEVICE_JPEG unset: launches {got1}")
+            log(f"[19 routes] {card}: {name} plan, {len(blobs)} sources "
+                f"(8 x 12 MP among them): engine_images_per_sec "
+                f"DEVICE_JPEG=0 {rates[name, 0]:.2f}, DEVICE_JPEG=1 "
+                f"{rates[name, 1]:.2f} (host clock, warm); launches {got} "
+                f"and {got1}; usable_cores {len(os.sched_getaffinity(0))}")
+        plan = normalize_operations(plans["default"])
+        items = []
+        for k, blob in enumerate(blobs):
+            arr, _fmt, layout, hw, _ = off.decode_for_plan_ex(blob, plan)
+            if layout != "hwc":
+                fail(f"phase 19: DEVICE_JPEG=0 took layout {layout}")
+            items.append(BatchItem(item_id=str(k), image=arr,
+                                   plan_key=plan.group_key(),
+                                   payload=(k, None, "jpeg", plan),
+                                   layout=layout, valid_hw=hw))
+        worst, checked = 0, 0
+        for group in group_items(items, max_batch=B):
+            (_, outs, out_hws, _), _ = counted(lambda: off.device_group(group))
+            for i, it in enumerate(group.items):
+                h, w = it.hw
+                if h * w > 1920 * 1080:
+                    continue
+                rgb = it.image[:h, :w]
+                oh, ow = out_hws[1][i]
+                for got, ref in ((outs[0][i], oracle.thumbnail_go(rgb, 200, crop_to_fit=True)),
+                                 (outs[1][i][:, :oh, :ow],
+                                  oracle.resize_go(rgb, 1024, 768, keep_aspect=True))):
+                    got = got.transpose(1, 2, 0)
+                    if got.shape != ref.shape:
+                        fail(f"phase 19: {got.shape} != oracle {ref.shape}")
+                    worst = max(worst, int(np.abs(got.astype(int) - ref.astype(int)).max()))
+                checked += 1
+        if worst > LSB_LIMIT or checked == 0:
+            fail(f"phase 19: DEVICE_JPEG=0 outputs {worst} LSB from the oracle")
+        log(f"[19 routes] DEVICE_JPEG=0: thumbnail and resize of the {checked} "
+            f"sources up to 1920x1080, host-decoded, within {worst} LSB of the "
+            f"float64 Go oracle (limit {LSB_LIMIT})")
+
+        # (b) the native coefficient rotation against the numpy path
+        scanned = hostcodec.scan_jpeg_coefficients(blobs[0])
+        luma = scanned[0][0]
+        numpy_rot = {"transpose": lambda q: q.T,
+                     "rot90": lambda q: coeftx._flip_h_plane(q).T,
+                     "rot270": lambda q: coeftx._flip_v_plane(q).T}
+        for mode, ref_fn in numpy_rot.items():
+            if not np.array_equal(hostcodec.coef_rot_i16(luma, mode), ref_fn(luma)):
+                fail(f"phase 19: coef_rot_i16 {mode} differs from the numpy path")
+        ctx = splice.coef_context(*scanned)
+        op = normalize_operations([P(T.ROTATE, {"angle": 90})]).ops[0]
+        prims = coeftx.eligible_prims(op, ctx.size, ctx.sampling)
+        native = coeftx._rot_native
+
+        def timed_apply():
+            best, out = float("inf"), None
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = coeftx.apply(ctx, prims)
+                best = min(best, time.perf_counter() - t0)
+            return out, best * 1000.0
+
+        fast, fast_ms = timed_apply()
+        coeftx._rot_native = lambda planes, mode: None
+        try:
+            slow, slow_ms = timed_apply()
+        finally:
+            coeftx._rot_native = native
+        if not all(np.array_equal(a, b) for a, b in zip(fast.planes, slow.planes)):
+            fail("phase 19: rot90 planes differ between the native and numpy paths")
+        log(f"[19 routes] {card}: coef_rot_i16 equals the numpy path bit for bit "
+            f"on a {luma.shape[0]}x{luma.shape[1]} luma plane in all three modes; "
+            f"rot90 [{'+'.join(prims)}] transform of one 3000x4000 4:2:0 JPEG, "
+            f"best of 3 (host clock, one thread): native {fast_ms:.1f} ms, numpy "
+            f"{slow_ms:.1f} ms ({slow_ms / fast_ms:.2f}x)")
+
+        # (c) replicas: the refusal, two on one card, two cards
+        have = torch.cuda.device_count()
+        try:
+            Worker(load({"DEVICE_DATA_AXIS": str(have + 1)}))
+            fail(f"phase 19: Worker took DEVICE_DATA_AXIS={have + 1} on {have} card(s)")
+        except ValueError as exc:
+            if "DEVICE_DATA_AXIS" not in str(exc):
+                fail(f"phase 19: the refusal does not name the variable: {exc}")
+            log(f"[19 replicas] Worker refuses DEVICE_DATA_AXIS={have + 1} before "
+                f"any backend: {exc}")
+        one = TorchProcessingEngine(Store(), device="cuda:0", batch_size=B)
+        engines.append(one)
+        two = TorchProcessingEngine(Store(), devices=[torch.device("cuda", 0)] * 2,
+                                    batch_size=B)
+        engines.append(two)
+        multi = None
+        if have >= 2:
+            multi = TorchProcessingEngine(Store(), device="cuda", data_axis=2,
+                                          batch_size=B)
+            engines.append(multi)
+        for name, ops in plans.items():
+            (art1, r1), got1 = counted(lambda: run(one, ops))
+            two.replica_groups[:] = [0, 0]
+            (art2, r2), got2 = counted(lambda: run(two, ops))
+            if art2 != art1 or not all(two.replica_groups):
+                fail(f"phase 19 {name}: two replicas on one card: identical "
+                     f"{art2 == art1}, groups per replica {two.replica_groups}")
+            line = (f"[19 replicas] {card}: {name} plan, {len(art1)} artifacts "
+                    f"byte-identical with two replicas on cuda:0 (two streams, two "
+                    f"threads, groups per replica {two.replica_groups}); images/s "
+                    f"one {r1:.2f}, two {r2:.2f} (host clock, warm); launches "
+                    f"{got1} and {got2}")
+            if multi is not None:
+                with kernels.count_lock:
+                    before = dict(kernels.card_launches)
+                (art_m, r_m), got_m = counted(lambda: run(multi, ops))
+                with kernels.count_lock:
+                    after = dict(kernels.card_launches)
+                per_card = {c: after.get(c, 0) - before.get(c, 0) for c in (0, 1)}
+                if art_m != art1 or not all(per_card.values()):
+                    fail(f"phase 19 {name}: data_axis=2 over two cards: identical "
+                         f"{art_m == art1}, launches per card {per_card}")
+                line += (f"; data_axis=2 over cuda:0 and cuda:1 byte-identical, "
+                         f"{r_m:.2f} images/s, launches per card {per_card}")
+            log(line)
+        if multi is None:
+            log(f"[19 replicas] the multi-card run was skipped: this host has "
+                f"{have} CUDA card")
+    finally:
+        os.environ.pop("IMAGEPROCESSOR_JPEG_SPLICE", None)
+        os.environ.pop("IMAGEPROCESSOR_DEVICE_JPEG", None)
+        for e in engines:
+            e.close()
+    log(f"[19 routes] launches of the phase's runs: {launched}")
+    return launched
+
+
+def main_sources() -> list:
+    """Phase 5's originals as (pixels, 4:2:0?): eight 12 MP photos, 1920 x
+    1080 and 640 x 480, all 4:2:0, and 1600 x 1200 at 4:4:4."""
+    sources = [(photo(3000, 4000, s), True) for s in range(8)]
+    sources += [(photo(1080, 1920, 8), True), (photo(480, 640, 9), True),
+                (photo(1200, 1600, 10), False)]        # last: 4:4:4
+    return sources
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("--phase", choices=["19"],
+                      help="run only phases 1, 2 and this one (19: routes "
+                           "and replicas, on a host with any number of cards); "
+                           "prints its launches and the card line, not the "
+                           "kernels line")
+    args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1558,6 +1812,12 @@ def main() -> int:
     t2 = time.monotonic()
     log(f"[2 build] kernels (one nvcc sm_90a per csrc/*.cu, in parallel) "
         f"{t1 - t0:.2f} s, host JPEG + GIF library (g++) {t2 - t1:.2f} s")
+    if args.phase == "19":
+        launched = phase_routes(card, oracle, [jpeg(img, sub)
+                                               for img, sub in main_sources()])
+        print(json.dumps({"phase": "19", "launches": launched}))
+        print(card)
+        return 0
 
     # ---- 3. B1 vs plain
     b1_err = 0
@@ -1618,9 +1878,7 @@ def main() -> int:
         f"|kernel - plain| = {b2_err} LSB (limit {LSB_LIMIT})")
 
     # ---- 5. the main path through the worker's steps
-    sources = [(photo(3000, 4000, s), True) for s in range(8)]
-    sources += [(photo(1080, 1920, 8), True), (photo(480, 640, 9), True),
-                (photo(1200, 1600, 10), False)]        # last: 4:4:4
+    sources = main_sources()
     t0 = time.monotonic()
     blobs = [jpeg(img, sub) for img, sub in sources]
     log(f"[5 main] {len(blobs)} originals encoded on the host in "
@@ -1826,7 +2084,7 @@ def main() -> int:
         rc = kernels.library().ip_encode_420(
             rgb.data_ptr() + off, rgb.stride(0), rgb.stride(1), s_row,
             vh.data_ptr(), qt85.data_ptr(), *(o.data_ptr() for o in outs), 1, 16,
-            16, kernels.stream_ptr(rgb.device))
+            16, rgb.device.index, kernels.stream_ptr(rgb.device))
         if rc == 0:
             fail(f"B3's C entry point took a misaligned {what}")
     log("[7 B3] ip_encode_420 refuses a base and a row stride that are not "
@@ -2209,7 +2467,8 @@ def main() -> int:
             if not group.layout.startswith("coef"):
                 fail(f"plan {ops}: a JPEG source took layout {group.layout}")
             _, outs, out_hws, _ = engine.device_group(group)
-            dec_t, _ = engine._upload(group, quantize_batch(len(group.items)))
+            packed, _ = group.pack(pad_batch_to=quantize_batch(len(group.items)))
+            dec_t = engine._upload(packed, group, engine.device)
             dec = dec_t.cpu().numpy()
             for oi, o in enumerate(plan.ops):
                 kind = o.type.value
@@ -2258,7 +2517,8 @@ def main() -> int:
         step = 0
         for group in plan_groups(plan):
             _, outs, _, _ = engine.device_group(group)
-            dec_t, ghw = engine._upload(group, quantize_batch(len(group.items)))
+            packed, ghw = group.pack(pad_batch_to=quantize_batch(len(group.items)))
+            dec_t = engine._upload(packed, group, engine.device)
             dims = [it.hw for it in group.items]
             for oi, o in enumerate(plan.ops):
                 if o.type.value not in ("grayscale", "flip"):
@@ -2555,6 +2815,9 @@ def main() -> int:
     # ---- 18. the reference topology: Kafka, S3, Postgres, two workers
     topo_launches = phase_topology(card, oracle)
 
+    # ---- 19. the device-JPEG switch, the native rotation, the replicas
+    route_launches = phase_routes(card, oracle, blobs)
+
     def row(name, key, source, replaces, phase, launched, err, ms, plain, b):
         # library_ms: no single PyTorch call computes any of the four:
         # torch has no 8x8 DCT (B1, B3), and interpolate takes one output
@@ -2565,12 +2828,13 @@ def main() -> int:
                 "replaces": f"imageprocessor_tpu/ops/{replaces}",
                 "launches": (launched + tx_launches[key] + single_launches[key]
                              + svc_launches[key] + bench_launches[key]
-                             + topo_launches[key]),
+                             + topo_launches[key] + route_launches[key]),
                 "launches_by_phase": {phase: launched, "11": tx_launches[key],
                                       "12": single_launches[key],
                                       "15": svc_launches[key],
                                       "17": bench_launches[key],
-                                      "18": topo_launches[key]},
+                                      "18": topo_launches[key],
+                                      "19": route_launches[key]},
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
                 "roofline_share": b["ms"] / ms,

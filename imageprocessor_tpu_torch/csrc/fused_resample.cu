@@ -64,7 +64,7 @@ extern "C" int ip_fused_resample(
     const void* a_c1, const void* a_fx, void* a_dst, int a_h, int a_w,
     const void* b_r0, const void* b_r1, const void* b_fy, const void* b_c0,
     const void* b_c1, const void* b_fx, void* b_dst, int b_h, int b_w,
-    void* stream) {
+    int device, void* stream) {
   if (batch <= 0 || batch > 65535 || a_h < 0 || a_w < 0 || b_h < 0 || b_w < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const ipk::Output a =
@@ -74,6 +74,10 @@ extern "C" int ip_fused_resample(
   const long long total = static_cast<long long>(a_h) * a_w +
                           static_cast<long long>(b_h) * b_w;
   if (total == 0) return static_cast<int>(cudaSuccess);
+  // this library links its own static CUDA runtime: make the operands'
+  // card current in it too (a no-op when it already is)
+  const cudaError_t on = cudaSetDevice(device);
+  if (on != cudaSuccess) return static_cast<int>(on);
   const dim3 grid(static_cast<unsigned>((total + NT - 1) / NT), batch);
   fused_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), src_h, src_w, a, b);

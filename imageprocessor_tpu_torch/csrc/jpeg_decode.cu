@@ -454,12 +454,17 @@ bool aligned16(const void* p) {
 extern "C" int ip_decode_coefs(const void* yc, const void* cbc,
                                const void* crc, const void* qt, const void* cv,
                                void* out, int batch, int ch, int cw, int fh,
-                               int fw, int out_h, int out_w, void* stream) {
+                               int fw, int out_h, int out_w, int device,
+                               void* stream) {
   if (batch <= 0 || out_h <= 0 || out_w <= 0 || out_h > ch || out_w > cw ||
       batch > 65535 || fh < 1 || fw < 1 || ch % (8 * fh) || cw % (8 * fw) ||
       !aligned16(yc) || !aligned16(cbc) || !aligned16(crc) || !aligned16(qt) ||
       !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
+  // this library links its own static CUDA runtime: make the operands'
+  // card current in it too (a no-op when it already is)
+  const cudaError_t on = cudaSetDevice(device);
+  if (on != cudaSuccess) return static_cast<int>(on);
   auto s = static_cast<cudaStream_t>(stream);
   switch (fh * 10 + fw) {
     case 22: return launch_mode<2, 2>(yc, cbc, crc, qt, cv, out, batch, ch, cw, out_h, out_w, s);

@@ -320,12 +320,16 @@ bool aligned(const void* p, uintptr_t n) {
 extern "C" int ip_encode_420(const void* rgb, long long s_img, long long s_chan,
                              long long s_row, const void* valid, const void* qt,
                              void* yc, void* cbc, void* crc, int batch, int h,
-                             int w, void* stream) {
+                             int w, int device, void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || w <= 0 || h % 16 || w % 16 ||
       !aligned(rgb, 8) || s_img % 8 || s_chan % 8 || s_row % 8 ||
       !aligned(qt, 16) || !aligned(yc, 16) || !aligned(cbc, 16) ||
       !aligned(crc, 16))
     return static_cast<int>(cudaErrorInvalidValue);
+  // this library links its own static CUDA runtime: make the operands'
+  // card current in it too (a no-op when it already is)
+  const cudaError_t on = cudaSetDevice(device);
+  if (on != cudaSuccess) return static_cast<int>(on);
   const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, batch);
   encode_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), s_img, s_chan, s_row,

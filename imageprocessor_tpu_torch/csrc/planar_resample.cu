@@ -51,10 +51,15 @@ extern "C" int ip_planar_resample(const void* src, int batch, int src_h,
                                   int src_w, const void* r0, const void* r1,
                                   const void* fy, const void* c0,
                                   const void* c1, const void* fx, void* dst,
-                                  int h, int w, void* stream) {
+                                  int h, int w, int device,
+                                  void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const ipk::Output o = ipk::make_output(r0, r1, fy, c0, c1, fx, dst, h, w);
+  // this library links its own static CUDA runtime: make the operands'
+  // card current in it too (a no-op when it already is)
+  const cudaError_t on = cudaSetDevice(device);
+  if (on != cudaSuccess) return static_cast<int>(on);
   const long long total = static_cast<long long>(h) * w;
   const dim3 grid(static_cast<unsigned>((total + NT - 1) / NT), batch);
   planar_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -8,9 +8,13 @@ hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so
 a changed source always rebuilds and a stale binary is never loaded.
 Nothing here runs at import time: CPU-only hosts never call nvcc.
 
-Every C entry point launches on the stream it is given (PyTorch's current
-stream), allocates nothing, and returns ``cudaGetLastError()``;
-:func:`check` raises :class:`KernelError` when that is not 0.
+Every C entry point takes its operands' card and the stream to launch on
+(PyTorch's current stream on that card), makes the card current in the
+CUDA runtime its library links (each library has its own static copy),
+allocates nothing, and returns ``cudaGetLastError()``. :func:`launch`
+calls one with the card current for PyTorch too and raises
+:class:`KernelError` when it returns anything but 0, so a launch lands on
+its operands' card or fails.
 """
 
 from __future__ import annotations
@@ -37,19 +41,25 @@ _lib: types.SimpleNamespace | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes of every C entry point (all return int cudaError_t)
+# name -> argtypes of every C entry point (all return int cudaError_t);
+# each ends with the card's index and the stream
 _SIGNATURES = {
-    # yc, cbc, crc, qt, cv, out, batch, ch, cw, fh, fw, out_h, out_w, stream
-    "ip_decode_coefs": [_P] * 6 + [_I] * 7 + [_P],
+    # yc, cbc, crc, qt, cv, out, batch, ch, cw, fh, fw, out_h, out_w
+    "ip_decode_coefs": [_P] * 6 + [_I] * 7 + [_I, _P],
     # src, batch, src_h, src_w,
-    # then for outputs a and b: r0, r1, fy, c0, c1, fx, dst, h, w; stream
-    "ip_fused_resample": [_P, _I, _I, _I] + ([_P] * 7 + [_I, _I]) * 2 + [_P],
-    # src, batch, src_h, src_w, r0, r1, fy, c0, c1, fx, dst, h, w, stream
-    "ip_planar_resample": [_P, _I, _I, _I] + [_P] * 7 + [_I, _I, _P],
-    # rgb, image/channel/row strides, valid, qt, yc, cbc, crc, batch, h, w,
-    # stream
-    "ip_encode_420": [_P] + [ctypes.c_longlong] * 3 + [_P] * 5 + [_I] * 3 + [_P],
+    # then for outputs a and b: r0, r1, fy, c0, c1, fx, dst, h, w
+    "ip_fused_resample": [_P, _I, _I, _I] + ([_P] * 7 + [_I, _I]) * 2 + [_I, _P],
+    # src, batch, src_h, src_w, r0, r1, fy, c0, c1, fx, dst, h, w
+    "ip_planar_resample": [_P, _I, _I, _I] + [_P] * 7 + [_I, _I] + [_I, _P],
+    # rgb, image/channel/row strides, valid, qt, yc, cbc, crc, batch, h, w
+    "ip_encode_420": [_P] + [ctypes.c_longlong] * 3 + [_P] * 5 + [_I] * 3 + [_I, _P],
 }
+
+# launches of every kernel per card index, for callers that count a run
+# over several cards; the wrappers' own counters are guarded by the same
+# lock, since the replicas of an engine launch from threads of their own
+count_lock = threading.Lock()
+card_launches: dict[int, int] = {}
 
 
 class KernelError(RuntimeError):
@@ -138,6 +148,18 @@ def library() -> types.SimpleNamespace:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise KernelError(f"{name} launch failed: cudaError {rc}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` with ``args``, then ``device``'s index
+    and PyTorch's current stream on it, with ``device`` the calling
+    thread's current card; raise KernelError unless it returns 0."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        rc = fn(*args, device.index, stream_ptr(device))
+    check(rc, name)
+    with count_lock:
+        card_launches[device.index] = card_launches.get(device.index, 0) + 1
 
 
 def stream_ptr(device: torch.device) -> int:

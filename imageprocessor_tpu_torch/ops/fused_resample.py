@@ -24,7 +24,8 @@ import torch
 from imageprocessor_tpu_torch import kernels
 from imageprocessor_tpu_torch.ops.coords import center_crop_rect, quantize_go_xdraw
 
-# Launches of kernel B2 in this process (reset by callers that count a run).
+# Launches of kernel B2 in this process, every card's (reset by callers
+# that count a run; kernels.count_lock guards it).
 launches = 0
 
 
@@ -168,8 +169,8 @@ def fused_resample(src: torch.Tensor, taps_a: Taps | None,
         args += [x.data_ptr() for x in (t.r0, t.r1, t.fy, t.c0, t.c1, t.fx)]
         args += [dst.data_ptr(), h, w]
         outs.append(dst)
-    rc = kernels.library().ip_fused_resample(
-        src.data_ptr(), b, sh, sw, *args, kernels.stream_ptr(src.device))
-    kernels.check(rc, "ip_fused_resample")
-    launches += 1
+    kernels.launch("ip_fused_resample", src.device, src.data_ptr(), b, sh,
+                   sw, *args)
+    with kernels.count_lock:
+        launches += 1
     return outs[0], outs[1]

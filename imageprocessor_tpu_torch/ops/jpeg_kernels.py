@@ -5,8 +5,8 @@ entry points.
 
 Each wrapper validates its operands, then takes the plain PyTorch version
 (ops/jpeg_decode.py, ops/jpeg_encode.py) for tensors on the CPU and
-launches the CUDA kernel for tensors on a card. There is no fallback from
-a kernel: a CUDA tensor launches it or raises.
+launches the CUDA kernel on the card the tensors lie on. There is no
+fallback from a kernel: a CUDA tensor launches it or raises.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from imageprocessor_tpu_torch import kernels
 from imageprocessor_tpu_torch.ops.jpeg_decode import decode_ycbcr
 from imageprocessor_tpu_torch.ops.jpeg_encode import encode_420_plain
 
-# Launches of kernels B1 and B3 in this process (reset by callers that
-# count a run).
+# Launches of kernels B1 and B3 in this process, every card's (reset by
+# callers that count a run; kernels.count_lock guards them).
 launches = 0
 encode_launches = 0
 
@@ -82,12 +82,12 @@ def decode_coefs(yc: torch.Tensor, cbc: torch.Tensor, crc: torch.Tensor,
     b, ch, cw = yc.shape
     out = torch.empty((b, 3, out_hw[0], out_hw[1]), dtype=torch.uint8,
                       device=yc.device)
-    rc = kernels.library().ip_decode_coefs(
-        yc.data_ptr(), cbc.data_ptr(), crc.data_ptr(), qt.data_ptr(),
-        cv.data_ptr(), out.data_ptr(), b, ch, cw, fh, fw, out_hw[0],
-        out_hw[1], kernels.stream_ptr(yc.device))
-    kernels.check(rc, "ip_decode_coefs")
-    launches += 1
+    kernels.launch("ip_decode_coefs", yc.device, yc.data_ptr(),
+                   cbc.data_ptr(), crc.data_ptr(), qt.data_ptr(),
+                   cv.data_ptr(), out.data_ptr(), b, ch, cw, fh, fw,
+                   out_hw[0], out_hw[1])
+    with kernels.count_lock:
+        launches += 1
     return out
 
 
@@ -126,10 +126,10 @@ def encode_420(rgb: torch.Tensor, valid_hw: torch.Tensor, qt: torch.Tensor
     yc = torch.empty((b, h, w), dtype=torch.int16, device=rgb.device)
     cbc = torch.empty((b, h // 2, w // 2), dtype=torch.int16, device=rgb.device)
     crc = torch.empty_like(cbc)
-    rc = kernels.library().ip_encode_420(
-        rgb.data_ptr(), rgb.stride(0), rgb.stride(1), rgb.stride(2),
-        valid_hw.data_ptr(), qt.data_ptr(), yc.data_ptr(), cbc.data_ptr(),
-        crc.data_ptr(), b, h, w, kernels.stream_ptr(rgb.device))
-    kernels.check(rc, "ip_encode_420")
-    encode_launches += 1
+    kernels.launch("ip_encode_420", rgb.device, rgb.data_ptr(),
+                   rgb.stride(0), rgb.stride(1), rgb.stride(2),
+                   valid_hw.data_ptr(), qt.data_ptr(), yc.data_ptr(),
+                   cbc.data_ptr(), crc.data_ptr(), b, h, w)
+    with kernels.count_lock:
+        encode_launches += 1
     return yc, cbc, crc

@@ -18,7 +18,8 @@ import torch
 from imageprocessor_tpu_torch import kernels
 from imageprocessor_tpu_torch.ops.fused_resample import Taps, check_operands, resample_plain
 
-# Launches of kernel B4 in this process (reset by callers that count a run).
+# Launches of kernel B4 in this process, every card's (reset by callers
+# that count a run; kernels.count_lock guards it).
 launches = 0
 
 
@@ -37,11 +38,11 @@ def planar_resample(src: torch.Tensor, taps: Taps) -> torch.Tensor:
     b, _, sh, sw = src.shape
     h, w = taps.shape
     dst = torch.empty((b, 3, h, w), dtype=torch.uint8, device=src.device)
-    rc = kernels.library().ip_planar_resample(
-        src.data_ptr(), b, sh, sw,
+    kernels.launch(
+        "ip_planar_resample", src.device, src.data_ptr(), b, sh, sw,
         *(t.data_ptr() for t in (taps.r0, taps.r1, taps.fy, taps.c0, taps.c1,
                                  taps.fx)),
-        dst.data_ptr(), h, w, kernels.stream_ptr(src.device))
-    kernels.check(rc, "ip_planar_resample")
-    launches += 1
+        dst.data_ptr(), h, w)
+    with kernels.count_lock:
+        launches += 1
     return dst

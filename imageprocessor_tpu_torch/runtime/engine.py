@@ -19,10 +19,16 @@ The path of one task:
    expresses (crop, flip, rotation by a multiple of 90 degrees:
    runtime/coeftx.py), all with JPEG renditions, then needs no pixels at
    all (layout "splice");
+   With IMAGEPROCESSOR_DEVICE_JPEG=0 (or device_jpeg=False) every JPEG
+   that needs pixels is decoded on the host instead, as the reference's
+   switch does;
 2. items are grouped by (bucket, plan, layout) and padded to a power-of-
    two batch (runtime/batcher, a copy of the reference's);
-3. device: kernel B1 decodes the coefficient canvases into the planar
-   bucket (HWC groups are uploaded and permuted instead); the plan's
+3. device, on the engine's next free replica (one card and its stream,
+   parallel/mesh.py; with several, process_tasks runs its groups side
+   by side from a thread each): kernel B1 decodes the coefficient
+   canvases into the planar bucket (HWC groups are uploaded and permuted
+   instead); the plan's
    resamples run through kernel B2 (the first thumbnail + resize pair)
    and kernel B4 (every other one); crop, flip, rotate and grayscale are
    the tensor ops of ops/extra.py; a watermark the splice does not serve
@@ -32,7 +38,8 @@ The path of one task:
    host; a full-bucket output (watermark, flip, grayscale) whose
    renditions are all JPEGs goes through kernel B3 (the encode front
    half) at the group's largest valid extent rounded up to /16, and its
-   int16 coefficient canvases are copied instead;
+   int16 coefficient canvases are copied instead (not with the device
+   JPEG switch off);
 4. host: a spliced watermark is emitted by region transcode, a
    coefficient-domain transform by permuting the scanned blocks and
    re-symbolizing them, B3's coefficients by the entropy emitter
@@ -52,6 +59,8 @@ device; nacked for redelivery).
 from __future__ import annotations
 
 import logging
+import os
+import queue
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -92,6 +101,7 @@ from imageprocessor_tpu_torch.ops.jpeg_kernels import decode_coefs, encode_420
 from imageprocessor_tpu_torch.ops.resize import resize_image
 from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
 from imageprocessor_tpu_torch.ops.watermark import watermark_image
+from imageprocessor_tpu_torch.parallel.mesh import replica_devices
 from imageprocessor_tpu_torch.runtime import coeftx, hostcodec, splice
 from imageprocessor_tpu_torch.runtime.batcher import (
     MAX_BATCH,
@@ -147,13 +157,54 @@ class EngineResult:
 class TorchProcessingEngine:
     def __init__(self, object_store, *, device: str | torch.device = "cuda",
                  codec_threads: int = 3, batch_size: int = 32,
-                 jpeg_quality: int = DEFAULT_JPEG_QUALITY):
+                 jpeg_quality: int = DEFAULT_JPEG_QUALITY,
+                 device_jpeg: bool | None = None,
+                 data_axis: int | None = None,
+                 devices: list[torch.device] | None = None):
         self.store = object_store
-        self.device = resolve_device(device)
+        # Data-parallel serving: one engine drives every replica, each
+        # group whole on the next free one (``devices`` names them
+        # outright: two replicas may share a card, each with its stream)
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+            if not self.devices:
+                raise ValueError("devices must name at least one device")
+        else:
+            self.devices = replica_devices(device, data_axis)
+        self.device = self.devices[0]
+        # groups each replica ran (how evenly the groups spread)
+        self.replica_groups = [0] * len(self.devices)
+        # several replicas: a stream each on a card, the free ones in a
+        # queue, and a thread each for process_tasks' groups; one replica
+        # runs in the caller's thread on its current stream
+        self._free = self._replicas = None
+        self._streams: list = [None]
+        if len(self.devices) > 1:
+            self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                             else None for d in self.devices]
+            self._free = queue.SimpleQueue()
+            for k in range(len(self.devices)):
+                self._free.put(k)
+            self._replicas = ThreadPoolExecutor(max_workers=len(self.devices),
+                                                thread_name_prefix="replica")
         # group_items must never emit a group larger than quantize_batch's
         # cap, or Group.pack would index past its canvas
         self.batch_size = max(1, min(batch_size, MAX_BATCH))
         self.jpeg_quality = jpeg_quality
+        # IMAGEPROCESSOR_DEVICE_JPEG, read once as the reference reads it:
+        # 0 keeps JPEG decode and encode on the host. Its auto policy
+        # (unset or any other value) is True here: the card is the port's
+        # codec device, and the reference's core-count threshold
+        # (IMAGEPROCESSOR_DEVICE_JPEG_CORES) is a TPU figure, not read
+        if device_jpeg is None:
+            env_flag = os.environ.get("IMAGEPROCESSOR_DEVICE_JPEG", "")
+            if env_flag in ("1", "true", "yes"):
+                device_jpeg = True
+            elif env_flag in ("0", "false", "no"):
+                device_jpeg = False
+            else:
+                device_jpeg = True
+        self.device_jpeg = device_jpeg
         hostcodec.library()   # build the scan library up front
         self._pool = ThreadPoolExecutor(max_workers=max(codec_threads, 1),
                                         thread_name_prefix="codec")
@@ -405,7 +456,7 @@ class TorchProcessingEngine:
                 w, h = sctx.size
                 return (np.empty((0, 0, 3), dtype=np.uint8), "jpeg", "splice",
                         (h, w), sctx)
-        if is_jpeg:
+        if is_jpeg and self.device_jpeg:
             try:
                 if scanned is None:
                     scanned = hostcodec.scan_jpeg_coefficients(data)
@@ -478,7 +529,7 @@ class TorchProcessingEngine:
             except Exception as exc:  # e.g. a non-string Format
                 results[i] = self._failed(task, f"Operation failed: {exc}")
 
-        for group in group_items(items, max_batch=self.batch_size):
+        def _group(group):
             try:
                 self._run_group(group, results, device_section)
             except Exception as exc:
@@ -490,23 +541,26 @@ class TorchProcessingEngine:
                     if results[i] is None:
                         results[i] = self._failed(task, f"device error: {exc}",
                                                   kind=kind)
+
+        groups = group_items(items, max_batch=self.batch_size)
+        if self._replicas is None:
+            for group in groups:
+                _group(group)
+        else:   # the groups run side by side, each on a free replica
+            list(self._replicas.map(_group, groups))
         return [r if r is not None else self._failed(
             tasks_with_data[i][0], "internal: no result produced",
             kind=TRANSIENT) for i, r in enumerate(results)]
 
-    def _upload(self, group, b: int):
-        """Pack a group and put its planar (B, 3, Hb, Wb) u8 bucket on the
-        device: kernel B1 for coefficient groups, a permute for HWC."""
-        t_pack = time.monotonic()
-        imgs, src_hw = group.pack(pad_batch_to=b)
-        METRICS.observe("engine_pack_ms", (time.monotonic() - t_pack) * 1000.0)
+    def _upload(self, imgs, group, device: torch.device) -> torch.Tensor:
+        """Put packed rows of a group on ``device`` as a planar (B, 3, Hb,
+        Wb) u8 bucket: kernel B1 for coefficient rows, a permute for HWC."""
         if group.layout.startswith("coef"):
             fh, fw = coef_factors(group.layout)
-            yc, cbc, crc, qt, cv = (torch.from_numpy(a).to(self.device)
-                                    for a in imgs)
-            return decode_coefs(yc, cbc, crc, qt, cv, fh, fw, group.bucket), src_hw
-        x = torch.from_numpy(imgs).to(self.device)
-        return x.permute(0, 3, 1, 2).contiguous(), src_hw
+            yc, cbc, crc, qt, cv = (torch.from_numpy(a).to(device) for a in imgs)
+            return decode_coefs(yc, cbc, crc, qt, cv, fh, fw, group.bucket)
+        x = torch.from_numpy(imgs).to(device)
+        return x.permute(0, 3, 1, 2).contiguous()
 
     def device_group(self, group):
         """Stage 2: one packed group through the device. Returns (plan,
@@ -514,7 +568,21 @@ class TorchProcessingEngine:
         u8 array, ("coef420", yc, cbc, crc, qt) for B3's canvases, or
         ("splice", op) for a rendition the finish stage emits from the
         scanned coefficients (a spliced watermark, a coefficient-domain
-        transform)."""
+        transform). With several replicas the group runs whole on the
+        next free one, on its stream; callers on several threads keep
+        every replica busy."""
+        if self._free is None:
+            self.replica_groups[0] += 1
+            return self._device_group(group, self.device)
+        k = self._free.get()
+        try:
+            self.replica_groups[k] += 1
+            with torch.cuda.stream(self._streams[k]):
+                return self._device_group(group, self.devices[k])
+        finally:
+            self._free.put(k)
+
+    def _device_group(self, group, device: torch.device):
         plan: OperationPlan = group.items[0].payload[3]
         n_real = len(group.items)
 
@@ -589,9 +657,11 @@ class TorchProcessingEngine:
                                              if oi in run})
 
         t_dev = time.monotonic()
-        imgs, src_hw = self._upload(group, b)
-        outs = step_chw(imgs, src_hw, {run[oi]: v for oi, v in out_hws.items()
-                                       if oi in run}, specs)
+        imgs, src_hw = group.pack(pad_batch_to=b)
+        METRICS.observe("engine_pack_ms", (time.monotonic() - t_dev) * 1000.0)
+        outs = step_chw(self._upload(imgs, group, device), src_hw,
+                        {run[oi]: v for oi, v in out_hws.items() if oi in run},
+                        specs)
 
         # crop on the device to the group's largest valid output (rounded
         # up to /64) before the copy to the host
@@ -612,10 +682,11 @@ class TorchProcessingEngine:
             elif op.type in FULL_BUCKET_OPS:
                 # a full-bucket output that every item wants as a JPEG: the
                 # encode front half runs on the device and the finish stage
-                # keeps the entropy emit
+                # keeps the entropy emit (not with the device JPEG switch off)
                 is_wm = op.type is OperationType.WATERMARK
-                if all(negotiate_format(it.payload[2], watermark=is_wm) == "jpeg"
-                       for it in group.items):
+                if self.device_jpeg and all(
+                        negotiate_format(it.payload[2], watermark=is_wm) == "jpeg"
+                        for it in group.items):
                     outs_np.append(self._encode_coefs(o, group, max_h, max_w))
                     continue
                 o = o[:, :, :_q64(max_h, o.shape[2]), :_q64(max_w, o.shape[3])]
@@ -640,8 +711,8 @@ class TorchProcessingEngine:
         vh[:len(group.items)] = [it.hw for it in group.items]
         qt = quality_qtables(self.jpeg_quality)
         yc, cbc, crc = encode_420(
-            rgb, torch.from_numpy(vh).to(self.device),
-            torch.from_numpy(qt.astype(np.float32)).to(self.device))
+            rgb, torch.from_numpy(vh).to(canvas.device),
+            torch.from_numpy(qt.astype(np.float32)).to(canvas.device))
         return ("coef420", yc.cpu().numpy(), cbc.cpu().numpy(),
                 crc.cpu().numpy(), qt)
 
@@ -706,3 +777,5 @@ class TorchProcessingEngine:
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)
+        if self._replicas is not None:
+            self._replicas.shutdown(wait=True)

@@ -19,7 +19,10 @@ NativeCodecError:
 * ``gif_quantize_plan9`` serves runtime/codecs.py's GIF outputs;
 * ``crc32c`` checks every Kafka record batch (broker/kafkawire.py); its
   source is the port's own csrc/crc32c.cpp, a copy of native/ipcodec.cpp's
-  ``ip_crc32c`` (ipcodec.cpp itself needs libjpeg).
+  ``ip_crc32c`` (ipcodec.cpp itself needs libjpeg);
+* ``coef_rot_i16`` is the blocked rotation runtime/coeftx.py fuses a
+  mirror + transpose pair onto; its source is csrc/coefrot.cpp, a copy of
+  ipcodec.cpp's ``ip_coef_rot_i16``.
 
 Pixel decode and every other encode go to runtime/codecs.py (OpenCV,
 then PIL).
@@ -39,7 +42,8 @@ import numpy as np
 _REPO = pathlib.Path(__file__).resolve().parents[2]
 SOURCES = (*(_REPO / "native" / name
               for name in ("jpeg_scan.cpp", "jpeg_emit.cpp", "gifquant.cpp")),
-           _REPO / "imageprocessor_tpu_torch" / "csrc" / "crc32c.cpp")
+           *(_REPO / "imageprocessor_tpu_torch" / "csrc" / name
+             for name in ("crc32c.cpp", "coefrot.cpp")))
 BUILD_DIR = _REPO / "build" / "hostcodec"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
@@ -70,12 +74,18 @@ _SIGNATURES = {
     "ip_gif_quantize_plan9": ([_P, _I, _I, _L, _I, _P, _P], _I),
     "ip_crc32c": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32],
                   ctypes.c_uint32),
+    "ip_coef_rot_i16": ([_P, ctypes.c_int64, ctypes.c_int64, _P, _I], _I),
 }
 
 
 class HostCodecError(RuntimeError):
     """The stream cannot be scanned or emitted, or the library failed to
     build."""
+
+
+# the name the reference's shared code catches (runtime/coeftx.py's
+# ``_rot_native`` binds this module as ``nativecodec``)
+NativeCodecError = HostCodecError
 
 
 def _lib_path() -> pathlib.Path:
@@ -377,3 +387,26 @@ def crc32c(data: bytes, crc: int = 0) -> int:
     checksum of a Kafka RecordBatch v2 (nativecodec.crc32c's binding).
     Raises HostCodecError when the library cannot be built."""
     return int(library().ip_crc32c(bytes(data), len(data), crc & 0xFFFFFFFF))
+
+
+_ROT_MODES = {"transpose": 0, "rot90": 1, "rot270": 2}
+
+
+def coef_rot_i16(plane: np.ndarray, mode: str) -> np.ndarray:
+    """Blocked coefficient-plane rotation (csrc/coefrot.cpp,
+    nativecodec.coef_rot_i16's binding): transpose the 8x8-block grid AND
+    each block, with the frequency sign flips the rot90/rot270
+    decompositions inherit from their mirror half. ``mode`` is
+    "transpose", "rot90" or "rot270". Raises HostCodecError when a dim
+    is not block-aligned or the C entry refuses."""
+    lib = library()
+    p = np.ascontiguousarray(plane, dtype=np.int16)
+    hp, wp = p.shape
+    if hp % 8 or wp % 8:
+        raise HostCodecError("plane dims must be block-aligned")
+    out = np.empty((wp, hp), dtype=np.int16)
+    rc = lib.ip_coef_rot_i16(_ptr(p), hp // 8, wp // 8, _ptr(out),
+                             _ROT_MODES[mode])
+    if rc != 0:
+        raise HostCodecError(f"coef rot failed (rc={rc})")
+    return out

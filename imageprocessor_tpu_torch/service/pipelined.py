@@ -12,7 +12,8 @@ goroutine-pool concurrency (SURVEY.md §2 parallelism table row 1:
   stage 1 (fetch/decode threads): poll broker -> fetch blob -> decode ->
            DeadlineBatcher (flush on batch size OR deadline — the p99
            latency lever, SURVEY.md §7 hard part (d))
-  stage 2 (device thread): pack group -> fused program -> host outputs
+  stage 2 (device thread, one per engine replica): pack group -> fused
+           program -> host outputs
   stage 3 (encode pool): crop/encode/save/record/ack per image
 
 At-least-once semantics are identical to the batch worker: each message
@@ -197,7 +198,12 @@ class PipelinedWorker(Worker):
         while True:
             group = self._group_q.get()
             if group is _SENTINEL:
-                self._finish_q.put(_SENTINEL)
+                # one device thread per engine replica: the sentinel goes
+                # on to the next, and the last one out stops stage 3
+                with self._device_lock:
+                    self._device_threads -= 1
+                    last = self._device_threads == 0
+                (self._finish_q if last else self._group_q).put(_SENTINEL)
                 return
             try:
                 # The watchdog bounds a wedged device RPC (no exception
@@ -288,15 +294,22 @@ class PipelinedWorker(Worker):
         log.info("Pipelined worker started",
                  batch_size=self.cfg.worker.batch_size,
                  deadline_ms=self.cfg.worker.batch_deadline_ms)
-        device_t = threading.Thread(target=self._device_stage,
-                                    name="device", daemon=True)
+        # a device thread per engine replica, so that every card is busy
+        n = len(getattr(self.engine, "devices", [None]))
+        self._device_lock = threading.Lock()
+        self._device_threads = n
+        device_ts = [threading.Thread(target=self._device_stage,
+                                      name=f"device{k}", daemon=True)
+                     for k in range(n)]
         finish_t = threading.Thread(target=self._finish_stage,
                                     name="finish", daemon=True)
-        device_t.start()
+        for t in device_ts:
+            t.start()
         finish_t.start()
         try:
             self._decode_stage()
         finally:
-            device_t.join(timeout=60)
+            for t in device_ts:
+                t.join(timeout=60)
             finish_t.join(timeout=60)
         log.info("Pipelined worker stopped gracefully")

@@ -29,6 +29,8 @@ import queue
 import threading
 import time
 
+import torch
+
 from imageprocessor_tpu_torch.broker.base import Broker, BrokerMessage, build_broker
 from imageprocessor_tpu_torch.config import Config, apply_device_platform
 from imageprocessor_tpu_torch.domain import ImageStatus, ProcessedImage, ProcessingTask
@@ -91,19 +93,27 @@ class Worker:
                  broker: Broker | None = None,
                  engine: TorchProcessingEngine | None = None):
         self.cfg = cfg
-        # DEVICE_DATA_AXIS / DEVICE_SPACE_AXIS > 1 ask the reference's
-        # engine for a multi-chip mesh; the port serves on one card, so
-        # it refuses them by name instead of silently using one card.
-        for name, size in (("DEVICE_DATA_AXIS", cfg.device.data_axis),
-                           ("DEVICE_SPACE_AXIS", cfg.device.space_axis)):
-            if size > 1:
-                raise ValueError(
-                    f"{name}={size}: multi-GPU serving is not ported yet; "
-                    "ROADMAP A.2 (use 0 or 1)")
         # Resolve DEVICE_PLATFORM before any backend opens: a worker on a
         # host without a card (and without DEVICE_PLATFORM=cpu) is refused
-        # here and now, not at its first task.
+        # here and now, not at its first task. So are the mesh axes the
+        # port cannot serve, by name: the space axis above 1, and a data
+        # axis above the local cards or beside one named card.
         device = apply_device_platform(cfg) if engine is None else None
+        if cfg.device.space_axis > 1:
+            raise ValueError(
+                f"DEVICE_SPACE_AXIS={cfg.device.space_axis}: the space axis "
+                "is not served on the port (its largest bucket fits one "
+                "card); use 0 or 1")
+        n = cfg.device.data_axis
+        if device is not None and device.type == "cuda" and n > 1:
+            have = torch.cuda.device_count()
+            one = torch.device(cfg.device.platform or "cuda").index is not None
+            if n > have or one:
+                raise ValueError(
+                    f"DEVICE_DATA_AXIS={n}: this host has {have} CUDA "
+                    "card(s)" + (f" and DEVICE_PLATFORM={cfg.device.platform} "
+                                 "names one" if one else "")
+                    + f"; use at most {have}")
         self.meta = meta or build_metadata_store(cfg.db)
         self.store = store or build_object_store(cfg.storage)
         self.broker = broker or build_broker(cfg.broker)
@@ -112,9 +122,12 @@ class Worker:
         self.broker.create_topic(cfg.broker.results_topic,
                                  cfg.broker.partitions)
         self.engine = engine or TorchProcessingEngine(
-            self.store, device=device,
+            self.store, device=cfg.device.platform or "cuda",
             codec_threads=cfg.worker.concurrency,
-            batch_size=cfg.worker.batch_size)
+            batch_size=cfg.worker.batch_size,
+            # DEVICE_DATA_AXIS: above 1, one worker process drives that
+            # many local cards, each group whole on one (0 or 1: one card)
+            data_axis=cfg.device.data_axis)
         self._stop = threading.Event()
         self._idle_sleep = max(cfg.worker.batch_deadline_ms / 1000.0, 0.005)
         # Hung-device-RPC watchdog (utils/watchdog.py): a wedged device

@@ -28,7 +28,8 @@ the wire, on the CPU (DEVICE_PLATFORM=cpu).
   exit 0 on SIGTERM), ``api`` and ``worker`` with
   deploy/docker-compose.kafka.yaml's backend environment; a worker
   without DEVICE_PLATFORM on a host with no card, and a worker asked for
-  a multi-GPU mesh, are refused before any backend is opened.
+  the space axis, are refused before any backend is opened; a CPU worker
+  asked for a data axis above 1 serves through that many replicas.
 """
 
 import datetime as dt
@@ -725,12 +726,16 @@ def test_worker_refuses_a_multi_gpu_mesh_by_name(stubs, kind, axis, size):
         env = topology_env(kafka.address, s3.endpoint, pg)
         cfg = port_config.load({**env, "DEVICE_PLATFORM": "cpu", axis: str(size)})
         cls = PORT.workers[kind]
-        if size > 1:
-            with pytest.raises(ValueError, match="multi-GPU serving is not ported"):
+        if size > 1 and axis == "DEVICE_SPACE_AXIS":
+            with pytest.raises(ValueError,
+                               match="DEVICE_SPACE_AXIS=.*space axis is not served"):
                 cls(cfg)
             assert s3.requests == 0                  # refused before any backend
         else:
+            # a data axis above 1 on the CPU: that many replicas
             w = cls(cfg)
+            replicas = size if axis == "DEVICE_DATA_AXIS" and size > 1 else 1
+            assert w.engine.devices == [torch.device("cpu")] * replicas
             assert w.engine.device == torch.device("cpu")
             assert isinstance(w.broker, port_kafka.KafkaBroker)
             w.close()

@@ -3,9 +3,10 @@ rotate) against the reference's on the same seeded JPEGs.
 
 The port's module is a copy of the reference's over the port's own
 domain, splice and host library (tests/test_torch_shared_copies.py holds
-the source), with one difference: the reference fuses a mirror +
-transpose pair onto a native kernel of its libjpeg shim, the port always
-takes the numpy path. So every comparison here is exact:
+the source). Both fuse a mirror + transpose pair onto the same native
+blocked rotation (the reference's in its libjpeg shim, the port's a copy
+in its host library), and both keep the numpy path beside it. So every
+comparison here is exact:
 
 * ``eligible_prims``: the same primitive list (or None) over a grid of
   ops x image sizes x samplings, with the shift mirrors on and off;
@@ -148,12 +149,14 @@ def test_apply_equals_the_references(name, source):
 
 
 def test_apply_equals_the_references_numpy_path(monkeypatch):
-    """The reference with its native rotation kernel switched off runs
-    the code the port runs: same planes either way."""
+    """Both copies with their native rotation switched off run the numpy
+    path: same planes either way (test_apply_equals_the_references holds
+    the native pass of both)."""
     blob = jpeg_bytes(96, 128, 2, seed=3)
     ctx_ref, ctx_port = contexts(blob)
+    assert coeftx._rot_native(list(ctx_port.planes), "rot90") is not None
     monkeypatch.setattr(ref_coeftx, "_rot_native", lambda planes, mode: None)
-    assert coeftx._rot_native(list(ctx_port.planes), "rot90") is None
+    monkeypatch.setattr(coeftx, "_rot_native", lambda planes, mode: None)
     for name in ("rot90", "rot270"):
         _, b = ops_of(name)
         prims = coeftx.eligible_prims(b, ctx_port.size, ctx_port.sampling)

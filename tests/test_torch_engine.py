@@ -785,3 +785,36 @@ def test_coefficient_route_falls_back_to_the_single_image_op(engines, monkeypatc
     y, _ = decode_image(s_port.get_object(back.result.processed_paths["rotate"]))
     assert x.shape == y.shape == (400, 300, 3)
     assert psnr(x, y) > 40.0
+
+
+STEEP = {   # (source h, w) -> ops whose downscale is steeper than 32x
+    (1400, 1344): [_op("resize", width=40, height=40, keep_aspect=False)],
+    (1200, 1600): [_op("thumbnail", size=16, crop_to_fit=True),
+                   _op("resize", width=32, height=24, keep_aspect=True)],
+}
+
+
+@pytest.mark.parametrize("hw", sorted(STEEP))
+def test_steep_downscales_match_the_references_xla_route(engines, hw):
+    """A downscale steeper than 32x sends the reference to its HWC/XLA
+    route (``_plan_scale_ok``); the port takes B2's plain version (the
+    thumbnail + resize pair) or B4's (a lone resize), which take any
+    scale. PNG in and out: every output within 1 LSB of the reference's."""
+    (ref, s_ref), (port, s_port) = engines
+    blob = _png(photo(*hw))
+    ops = STEEP[hw]
+    assert ref.decode_for_plan_ex(blob, ref_normalize(ops), "png")[2] == "hwc"
+    task = make_task(ops, fmt="png")
+    a = ref.process_tasks([(task, blob)])[0]
+    b = port.process_tasks([(to_port(task), blob)])[0]
+    assert b.result.status is port_domain.ImageStatus.COMPLETED, b.result.error
+    assert a.result.processed_paths == b.result.processed_paths
+    for kind, path in b.result.processed_paths.items():
+        x, _ = decode_image(s_ref.get_object(path))
+        y, _ = decode_image(s_port.get_object(path))
+        assert x.shape == y.shape
+        assert np.abs(x.astype(int) - y.astype(int)).max() <= 1, kind
+    want = {"resize": (40, 40, 3)} if hw == (1400, 1344) else \
+        {"thumbnail": (16, 16, 3), "resize": (24, 32, 3)}
+    assert {k: decode_image(s_port.get_object(p))[0].shape
+            for k, p in b.result.processed_paths.items()} == want

@@ -26,7 +26,11 @@ and equal the CPU's plain version; the port's batch and pipelined workers,
 built with no DEVICE_PLATFORM, complete a default-plan and a splice-off
 watermark upload and launch B1, B2 and B3; a default-plan upload through
 Kafka, the S3 stub and the Postgres stub (chip_smoke.py's) launches B1
-and B2.
+and B2. Replicas: each kernel launched on a second card while the first
+is current equals its plain version there (hosts with two cards or
+more); an engine with two replicas on one card (two streams, two
+threads), and one with data_axis=2 over two cards, give artifacts
+byte-identical to one replica's.
 """
 
 import numpy as np
@@ -255,7 +259,7 @@ def test_b3_entry_refuses_misaligned(cuda, what, offset, s_row):
     rc = kernels.library().ip_encode_420(
         rgb.data_ptr() + offset, rgb.stride(0), rgb.stride(1), s_row,
         vh.data_ptr(), qt.data_ptr(), *(o.data_ptr() for o in outs), 1, 16, 16,
-        kernels.stream_ptr(cuda))
+        rgb.device.index, kernels.stream_ptr(rgb.device))
     assert rc != 0
 
 
@@ -543,3 +547,124 @@ def test_kafka_s3_postgres_upload_launches_b1_b2(cuda, monkeypatch):
         kafka.close()
         s3.close()
         pg.close()
+
+
+# --- replicas -----------------------------------------------------------------
+
+def test_every_kernel_launches_on_its_operands_card(cuda):
+    """With cuda:0 current, operands on the last card: each of B1-B4
+    launches there (its per-card count moves, cuda:0's does not) and
+    equals its plain version on that card."""
+    from imageprocessor_tpu_torch import kernels
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    far = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    with kernels.count_lock:
+        before = dict(kernels.card_launches)
+    src_hw = np.array([[100, 120], [64, 64]])
+    yc, cbc, crc, qt, cv = _coefs(src_hw.tolist(), 128, 128, 2, 2, 3, far)
+    dec = jpeg_kernels.decode_coefs(yc, cbc, crc, qt, cv, 2, 2, (128, 128))
+    assert dec.device == far
+    want = decode_ycbcr(yc, cbc, crc, qt, cv, fh=2, fw=2, out_h=128, out_w=128)
+    for i, (vh, vw) in enumerate(src_hw):   # pixels past the valid dims are unspecified
+        assert int((dec[i, :, :vh, :vw].int() - want[i, :, :vh, :vw].int()).abs().max()) <= 1
+    taps = fr.make_taps(src_hw, np.array([[50, 60], [32, 32]]), (64, 64),
+                        (128, 128)).to(far)
+    a, b = fr.fused_resample(dec, taps, taps)
+    assert torch.equal(a, fr.resample_plain(dec, taps)) and torch.equal(a, b)
+    assert torch.equal(pr.planar_resample(dec, taps), a)
+    vh = torch.from_numpy(src_hw.astype(np.int32)).to(far)
+    qt2 = torch.from_numpy(quality_qtables(85).astype(np.float32)).to(far)
+    got = jpeg_kernels.encode_420(dec, vh, qt2)
+    plain = encode_420_plain(dec, vh, qt2)
+    torch.cuda.synchronize(far)
+    assert all(got_i.device == far for got_i in got)
+    assert max(int(d.max()) for d, _ in coef_diffs(
+        [x.cpu().numpy() for x in plain], [x.cpu().numpy() for x in got],
+        src_hw.tolist())) <= 1
+    assert torch.cuda.current_device() == 0
+    with kernels.count_lock:
+        after = dict(kernels.card_launches)
+    assert after.get(far.index, 0) - before.get(far.index, 0) == 4
+    assert after.get(0, 0) == before.get(0, 0)
+
+
+def _replica_uploads():
+    import io
+
+    from PIL import Image as PILImage
+
+    from imageprocessor_tpu_torch.domain import (
+        OperationParams,
+        OperationType,
+        ProcessingTask,
+    )
+    rng = np.random.default_rng(21)
+    blobs = []
+    for h, w in ((600, 800), (480, 640), (590, 790), (300, 400), (620, 780)):
+        yy = np.linspace(0, 150, h)[:, None, None]
+        arr = np.clip(yy + rng.integers(0, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+        bio = io.BytesIO()
+        PILImage.fromarray(arr).save(bio, format="JPEG", quality=90)
+        blobs.append(bio.getvalue())
+    P, T = OperationParams, OperationType
+    plans = [[P(T.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
+              P(T.RESIZE, {"width": 1024, "height": 768, "keep_aspect": True})],
+             [P(T.FLIP, {"direction": "vertical"}), P(T.RESIZE, {"width": 320, "height": 240})]]
+    return [(ProcessingTask(id=f"t{k}{i}", image_id=f"i{k}{i}", original_path="o",
+                            bucket="b", operations=ops, format="jpeg"), blob)
+            for k, ops in enumerate(plans) for i, blob in enumerate(blobs)]
+
+
+def _replica_run(**kw):
+    from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
+
+    class Store:
+        def __init__(self):
+            self.blobs = {}
+
+        def save_processed(self, path, data, mime=None):
+            self.blobs[path] = data
+
+    store = Store()
+    eng = TorchProcessingEngine(store, **kw)
+    try:
+        res = eng.process_tasks(_replica_uploads())
+    finally:
+        eng.close()
+    assert all(r.result.status.value == "completed" for r in res), \
+        [r.result.error for r in res]
+    return store.blobs, eng.replica_groups
+
+
+def test_two_replicas_on_one_card_match_one(cuda, monkeypatch):
+    """Two replicas on one card (two streams, two threads) each run some
+    of the groups, and give the one replica's artifacts byte for byte,
+    B3's canvases included (splice off)."""
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
+    one, _ = _replica_run(device="cuda:0")
+    n = (jpeg_kernels.launches, fr.launches)
+    two, groups = _replica_run(devices=[torch.device("cuda", 0)] * 2)
+    assert (jpeg_kernels.launches, fr.launches) > n
+    assert two == one and all(groups), groups
+
+
+def test_data_axis_two_over_two_cards_matches_one(cuda, monkeypatch):
+    """data_axis=2 over two cards: both cards run groups and launch
+    kernels, and the artifacts are one card's byte for byte."""
+    from imageprocessor_tpu_torch import kernels
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
+    one, _ = _replica_run(device="cuda:0")
+    with kernels.count_lock:
+        before = dict(kernels.card_launches)
+    two, groups = _replica_run(device="cuda", data_axis=2)
+    with kernels.count_lock:
+        after = dict(kernels.card_launches)
+    assert two == one and all(groups), groups
+    for card in (0, 1):
+        assert after.get(card, 0) > before.get(card, 0), (before, after)

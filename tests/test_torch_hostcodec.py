@@ -4,7 +4,9 @@ against the reference's nativecodec bindings of the same native code.
 Both call native/jpeg_scan.cpp, native/jpeg_emit.cpp and
 native/gifquant.cpp, so every comparison is exact: the same scanned
 planes, tables and offsets, the same emitted bytes, the same GIF indices
-and palette.
+and palette. The blocked coefficient rotation (csrc/coefrot.cpp, a copy
+of ipcodec.cpp's) equals runtime/coeftx.py's numpy path and the
+reference library's bit for bit.
 """
 
 import io
@@ -15,6 +17,7 @@ from PIL import Image as PILImage
 
 from imageprocessor_tpu.runtime import nativecodec
 from imageprocessor_tpu.runtime import splice as ref_splice
+from imageprocessor_tpu_torch.runtime import coeftx as port_coeftx
 from imageprocessor_tpu_torch.runtime import hostcodec
 from imageprocessor_tpu_torch.runtime import splice as port_splice
 
@@ -133,3 +136,42 @@ def test_gif_quantizer_equals_nativecodec(dither):
     ib, pb = hostcodec.gif_quantize_plan9(rgb, dither=dither)
     np.testing.assert_array_equal(ia, ib)
     np.testing.assert_array_equal(pa, pb)
+
+
+# the numpy path runtime/coeftx.py takes without the native rotation
+ROT_NUMPY = {"transpose": lambda p: p.T,
+             "rot90": lambda p: port_coeftx._flip_h_plane(p).T,
+             "rot270": lambda p: port_coeftx._flip_v_plane(p).T}
+
+
+@pytest.mark.parametrize("hb,wb", [(1, 1), (3, 5), (7, 2), (13, 21)])
+@pytest.mark.parametrize("mode", sorted(ROT_NUMPY))
+def test_coef_rot_equals_the_numpy_path_and_nativecodec(mode, hb, wb):
+    """csrc/coefrot.cpp (a copy of ipcodec.cpp's blocked rotation) on
+    seeded planes with odd block counts: the numpy path's planes bit for
+    bit, and the reference library's where it loads with the symbol."""
+    rng = np.random.default_rng(hb * 100 + wb)
+    plane = rng.integers(-2048, 2048, (hb * 8, wb * 8)).astype(np.int16)
+    got = hostcodec.coef_rot_i16(plane, mode)
+    assert got.dtype == np.int16 and got.shape == (wb * 8, hb * 8)
+    np.testing.assert_array_equal(got, ROT_NUMPY[mode](plane))
+    lib = nativecodec._load()
+    if lib is not None and hasattr(lib, "ip_coef_rot_i16"):
+        np.testing.assert_array_equal(got, nativecodec.coef_rot_i16(plane, mode))
+    # a strided view is read as its values
+    view = np.asarray(np.repeat(plane, 2, axis=1)[:, ::2])
+    np.testing.assert_array_equal(hostcodec.coef_rot_i16(view, mode), got)
+
+
+@pytest.mark.parametrize("shape", [(12, 16), (16, 12), (7, 9)])
+def test_coef_rot_refuses_unaligned_planes(shape):
+    with pytest.raises(hostcodec.HostCodecError, match="block-aligned"):
+        hostcodec.coef_rot_i16(np.zeros(shape, np.int16), "rot90")
+
+
+def test_coef_rot_takes_the_native_pass_in_coeftx():
+    """coeftx's mirror + transpose pair goes through the host library's
+    rotation (the reference's own source, its import swapped)."""
+    planes = [np.arange(16 * 24, dtype=np.int16).reshape(16, 24)]
+    got = port_coeftx._rot_native(planes, "rot270")
+    np.testing.assert_array_equal(got[0], ROT_NUMPY["rot270"](planes[0]))

@@ -2,8 +2,8 @@
 silently, and chip_smoke.py refuses to run without a card.
 
 The first test imports every module of the package (the service layer,
-the config, the client, the utils and the Kafka, S3 and Postgres backends
-included), chip_smoke.py and every
+the config, the client, the utils, the Kafka, S3 and Postgres backends
+and parallel/ included), chip_smoke.py and every
 module it imports in a fresh interpreter where ``import jax`` and
 ``import imageprocessor_tpu`` fail (``sys.modules[...] = None``), runs
 ``python -m imageprocessor_tpu_torch.service --help`` and
@@ -62,7 +62,8 @@ def test_imports_succeed_with_jax_blocked():
                  "service.__main__", "service.app", "service.handlers",
                  "service.usecase", "service.worker", "service.pipelined",
                  "broker.kafkawire", "broker.kafka", "broker.kafkaserver",
-                 "storage.pgwire", "storage.postgres_meta", "storage.s3"):
+                 "storage.pgwire", "storage.postgres_meta", "storage.s3",
+                 "parallel", "parallel.mesh"):
         assert f"imageprocessor_tpu_torch.{must}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -26,12 +26,12 @@ The copies that differ do so in named places:
 * runtime/splice.py imports runtime/hostcodec.py and the port's
   ops/watermark.py where the original imports nativecodec and the
   reference's ops/watermark.py; only its import lines may differ;
-* runtime/coeftx.py imports the port's domain, splice and host library,
-  and its ``_rot_native`` returns None: the reference's calls a blocked
-  rotation kernel of its libjpeg shim, which the port's host library
-  (built without libjpeg) does not have, so ``apply`` takes the numpy
-  path that the reference keeps as its behavioural reference
-  (tests/test_torch_coeftx.py holds the results equal);
+* runtime/coeftx.py imports the port's domain, splice and host library;
+  its ``_rot_native`` differs only in the import line that binds the
+  port's host library (whose csrc/coefrot.cpp is a copy of ipcodec.cpp's
+  blocked rotation) as ``nativecodec``
+  (test_coeftx_rot_native_differs_only_in_its_import;
+  tests/test_torch_coeftx.py holds the results equal);
 * broker/kafkawire.py: ``crc32c`` takes the port's host library
   (runtime/hostcodec.py, whose csrc/crc32c.cpp is a copy of ipcodec.cpp's
   ``ip_crc32c``) where the original takes nativecodec; only that import
@@ -40,11 +40,17 @@ The copies that differ do so in named places:
 * config.py: ``apply_device_platform`` returns the ``torch.device`` that
   DEVICE_PLATFORM names (empty means the card) where the original forces
   a JAX platform;
-* service/worker.py: ``Worker.__init__`` refuses DEVICE_DATA_AXIS or
-  DEVICE_SPACE_AXIS above 1 by name (multi-GPU serving is not ported),
-  builds a TorchProcessingEngine on that device and has no compile cache
-  (so the imports of the engine and of config differ too); every other
-  method is the original's;
+* service/worker.py: ``Worker.__init__`` resolves DEVICE_PLATFORM to a
+  ``torch.device`` before any backend opens, refuses by name
+  DEVICE_SPACE_AXIS above 1 and a DEVICE_DATA_AXIS above the local cards
+  (or beside one named card), builds a TorchProcessingEngine with the
+  data axis and has no compile cache (so the imports of the engine and of
+  config differ too); every other method is the original's;
+* service/pipelined.py: ``run`` starts one device-stage thread per
+  engine replica (the engine runs each group whole on one replica, where
+  the original's splits every group across its chips), and
+  ``_device_stage`` passes the stop sentinel on to the next of them, the
+  last one stopping the finish stage;
 * service/__main__.py: ``main`` resolves the device through the config
   hook, and its ``worker`` mode runs the worker on a thread of its own
   while the main thread joins it: the original runs it on the main
@@ -93,6 +99,8 @@ DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
            "service/worker.py": {"from imageprocessor_tpu.config",
                                  "from imageprocessor_tpu.runtime.engine",
                                  "Worker.__init__"},
+           "service/pipelined.py": {"PipelinedWorker._device_stage",
+                                    "PipelinedWorker.run"},
            "service/__main__.py": {"main"}}
 STATIC = ["index.html", "app.js", "style.css"]
 # copies whose top-level imports are their own (the host library in place
@@ -145,6 +153,15 @@ def test_copy_has_the_originals_source(rel):
         assert name in ref, f"{rel}: {name} is not in the original"
         if name not in DIFFERS.get(rel, ()):
             assert src == ref[name], f"{rel}: {name} differs from the original"
+
+
+def test_coeftx_rot_native_differs_only_in_its_import():
+    port = _top_level(PORT / "runtime/coeftx.py", rename=True)["_rot_native"]
+    ref = _top_level(REF / "runtime/coeftx.py", rename=False)["_rot_native"]
+    swapped = "from imageprocessor_tpu.runtime import hostcodec as nativecodec"
+    assert port.count(swapped) == 1
+    assert port.replace(
+        swapped, "from imageprocessor_tpu.runtime import nativecodec") == ref
 
 
 def test_kafkawire_crc32c_differs_only_in_its_library():
