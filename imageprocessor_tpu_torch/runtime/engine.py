@@ -24,11 +24,14 @@ The path of one task:
    switch does;
 2. items are grouped by (bucket, plan, layout) and padded to a power-of-
    two batch (runtime/batcher, a copy of the reference's);
-3. device, on the engine's next free replica (one card and its stream,
-   parallel/mesh.py; with several, process_tasks runs its groups side
-   by side from a thread each): kernel B1 decodes the coefficient
-   canvases into the planar bucket (HWC groups are uploaded and permuted
-   instead); the plan's
+3. device, on the engine's next free replica (its cards and a stream on
+   each, parallel/mesh.py; with several, process_tasks runs its groups
+   side by side from a thread each). With a space axis of s the group is
+   split into s column strips of its bucket, strip k on the replica's
+   card k, and every step below runs once per strip (models/strips.py);
+   the host stitches the strips' outputs. Kernel B1 decodes the
+   coefficient canvases into the planar bucket (HWC groups are uploaded
+   and permuted instead); the plan's
    resamples run through kernel B2 (the first thumbnail + resize pair)
    and kernel B4 (every other one); crop, flip, rotate and grayscale are
    the tensor ops of ops/extra.py; a watermark the splice does not serve
@@ -58,6 +61,7 @@ device; nacked for redelivery).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
@@ -83,6 +87,7 @@ from imageprocessor_tpu_torch.errors import (
 )
 from imageprocessor_tpu_torch.kernels import KernelError
 from imageprocessor_tpu_torch.models.pipeline import plan_output_specs, step_chw
+from imageprocessor_tpu_torch.models.strips import Strips, step_strips
 from imageprocessor_tpu_torch.models.plan import (
     InvalidParamsError,
     NormalizedOp,
@@ -101,7 +106,11 @@ from imageprocessor_tpu_torch.ops.jpeg_kernels import decode_coefs, encode_420
 from imageprocessor_tpu_torch.ops.resize import resize_image
 from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
 from imageprocessor_tpu_torch.ops.watermark import watermark_image
-from imageprocessor_tpu_torch.parallel.mesh import replica_devices
+from imageprocessor_tpu_torch.parallel.mesh import (
+    replica_devices,
+    strip_bounds,
+    strip_halos,
+)
 from imageprocessor_tpu_torch.runtime import coeftx, hostcodec, splice
 from imageprocessor_tpu_torch.runtime.batcher import (
     MAX_BATCH,
@@ -134,6 +143,32 @@ TRANSIENT = "transient"
 FULL_BUCKET_OPS = (OperationType.WATERMARK, OperationType.FLIP,
                    OperationType.GRAYSCALE)
 
+# The auto policy of IMAGEPROCESSOR_DEVICE_JPEG, as the reference's: the
+# device codec serves a host with fewer usable cores than this
+# (IMAGEPROCESSOR_DEVICE_JPEG_CORES, read at engine construction; the
+# reference's default, its TPU crossover)
+DEVICE_JPEG_CORE_THRESHOLD = 127
+
+
+def usable_cores() -> int:
+    """Cores this PROCESS may use: cgroup/affinity-aware (a container
+    pinned to 4 of 64 cores must count 4 — it is exactly the
+    core-starved host the device-JPEG offload targets)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except (AttributeError, OSError):  # non-Linux
+        return os.cpu_count() or 1
+
+
+def _to_host(o, h: int, w: int) -> np.ndarray:
+    """A device output's top-left (h, w) on the host: a (B, 3, H, W)
+    tensor, the StripOut of a strip run, or a host array already."""
+    if isinstance(o, torch.Tensor):
+        return o[:, :, :h, :w].cpu().numpy()
+    if isinstance(o, np.ndarray):
+        return o[:, :, :h, :w]
+    return o.to_host(h, w)
+
 
 @dataclass
 class Artifact:
@@ -160,28 +195,42 @@ class TorchProcessingEngine:
                  jpeg_quality: int = DEFAULT_JPEG_QUALITY,
                  device_jpeg: bool | None = None,
                  data_axis: int | None = None,
-                 devices: list[torch.device] | None = None):
+                 space_axis: int | None = 1,
+                 devices: list | None = None):
         self.store = object_store
-        # Data-parallel serving: one engine drives every replica, each
-        # group whole on the next free one (``devices`` names them
-        # outright: two replicas may share a card, each with its stream)
+        # Multi-card serving, the reference's (data x space) grid: one
+        # engine drives every replica, each group whole on the next free
+        # one; a replica is ``space_axis`` cards, and splits each group
+        # into that many column strips, one per card. ``devices`` names
+        # the replicas outright, each a device (``space_axis`` strips on
+        # it) or a sequence of one device per strip: two replicas, or two
+        # strips, may share a card
+        space = max(1, int(space_axis or 1))
         if devices is not None:
-            self.devices = [resolve_device(d) for d in devices]
-            if not self.devices:
-                raise ValueError("devices must name at least one device")
+            self.replicas = [tuple(resolve_device(x) for x in (
+                d if isinstance(d, (list, tuple)) else [d] * space))
+                for d in devices]
+            if not self.replicas or len({len(r) for r in self.replicas}) != 1:
+                raise ValueError("devices must name at least one replica, "
+                                 "each with as many strips")
         else:
-            self.devices = replica_devices(device, data_axis)
+            self.replicas = replica_devices(device, data_axis, space)
+        # each replica's first card: process_single's, and the pipelined
+        # worker's count of device threads
+        self.devices = [r[0] for r in self.replicas]
         self.device = self.devices[0]
+        self.space_axis = len(self.replicas[0])
         # groups each replica ran (how evenly the groups spread)
-        self.replica_groups = [0] * len(self.devices)
-        # several replicas: a stream each on a card, the free ones in a
-        # queue, and a thread each for process_tasks' groups; one replica
-        # runs in the caller's thread on its current stream
+        self.replica_groups = [0] * len(self.replicas)
+        # several replicas: a stream on each of their cards, the free ones
+        # in a queue, and a thread each for process_tasks' groups; one
+        # replica runs in the caller's thread on its cards' current streams
         self._free = self._replicas = None
-        self._streams: list = [None]
+        self._streams: list = [[]]
         if len(self.devices) > 1:
-            self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
-                             else None for d in self.devices]
+            self._streams = [[torch.cuda.Stream(device=d)
+                              for d in dict.fromkeys(r) if d.type == "cuda"]
+                             for r in self.replicas]
             self._free = queue.SimpleQueue()
             for k in range(len(self.devices)):
                 self._free.put(k)
@@ -192,10 +241,10 @@ class TorchProcessingEngine:
         self.batch_size = max(1, min(batch_size, MAX_BATCH))
         self.jpeg_quality = jpeg_quality
         # IMAGEPROCESSOR_DEVICE_JPEG, read once as the reference reads it:
-        # 0 keeps JPEG decode and encode on the host. Its auto policy
-        # (unset or any other value) is True here: the card is the port's
-        # codec device, and the reference's core-count threshold
-        # (IMAGEPROCESSOR_DEVICE_JPEG_CORES) is a TPU figure, not read
+        # 0 keeps JPEG decode and encode on the host, 1 puts them on the
+        # device. Its auto policy (unset or any other value) is the
+        # reference's: the device codec serves a host with fewer usable
+        # cores than IMAGEPROCESSOR_DEVICE_JPEG_CORES (default 127)
         if device_jpeg is None:
             env_flag = os.environ.get("IMAGEPROCESSOR_DEVICE_JPEG", "")
             if env_flag in ("1", "true", "yes"):
@@ -203,7 +252,9 @@ class TorchProcessingEngine:
             elif env_flag in ("0", "false", "no"):
                 device_jpeg = False
             else:
-                device_jpeg = True
+                device_jpeg = usable_cores() < int(os.environ.get(
+                    "IMAGEPROCESSOR_DEVICE_JPEG_CORES",
+                    str(DEVICE_JPEG_CORE_THRESHOLD)))
         self.device_jpeg = device_jpeg
         hostcodec.library()   # build the scan library up front
         self._pool = ThreadPoolExecutor(max_workers=max(codec_threads, 1),
@@ -562,6 +613,33 @@ class TorchProcessingEngine:
         x = torch.from_numpy(imgs).to(device)
         return x.permute(0, 3, 1, 2).contiguous()
 
+    def _upload_strips(self, imgs, src_hw, group, cards) -> Strips:
+        """Put packed rows of a group on a replica's cards as column strips
+        (parallel/mesh.py): strip k, its own columns and their halo, on
+        card k. Kernel B1 decodes each strip's coefficient columns, the
+        valid chroma width rebased to the strip (at least 1: an image that
+        ends before the strip gives pixels there that no output reads); HWC
+        rows are split the same way and permuted on each card."""
+        hb, wb = group.bucket
+        bounds = strip_bounds(wb, len(cards))
+        parts = []
+        for (a, b), dev in zip(strip_halos(bounds), cards):
+            if group.layout.startswith("coef"):
+                fh, fw = coef_factors(group.layout)
+                yc, cbc, crc, qt, cv = imgs
+                e = -(-b // (8 * fw)) * 8 * fw   # whole MCUs, inside the canvas
+                cvk = cv.copy()
+                cvk[:, 1] = np.clip(cv[:, 1] - a // fw, 1, (e - a) // fw)
+                ops = (yc[:, :, a:e], cbc[:, :, a // fw:e // fw],
+                       crc[:, :, a // fw:e // fw], qt, cvk)
+                parts.append(decode_coefs(
+                    *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in ops), fh, fw, (hb, b - a)))
+            else:
+                x = torch.from_numpy(np.ascontiguousarray(imgs[:, :, a:b])).to(dev)
+                parts.append(x.permute(0, 3, 1, 2).contiguous())
+        return Strips(parts, bounds, src_hw)
+
     def device_group(self, group):
         """Stage 2: one packed group through the device. Returns (plan,
         per-op host outputs, out_hws, layout). An output is a (B, 3, h, w)
@@ -569,20 +647,22 @@ class TorchProcessingEngine:
         ("splice", op) for a rendition the finish stage emits from the
         scanned coefficients (a spliced watermark, a coefficient-domain
         transform). With several replicas the group runs whole on the
-        next free one, on its stream; callers on several threads keep
-        every replica busy."""
+        next free one, on its cards' streams; callers on several threads
+        keep every replica busy."""
         if self._free is None:
             self.replica_groups[0] += 1
-            return self._device_group(group, self.device)
+            return self._device_group(group, self.replicas[0])
         k = self._free.get()
         try:
             self.replica_groups[k] += 1
-            with torch.cuda.stream(self._streams[k]):
-                return self._device_group(group, self.devices[k])
+            with contextlib.ExitStack() as streams:
+                for stream in self._streams[k]:
+                    streams.enter_context(torch.cuda.stream(stream))
+                return self._device_group(group, self.replicas[k])
         finally:
             self._free.put(k)
 
-    def _device_group(self, group, device: torch.device):
+    def _device_group(self, group, cards: tuple[torch.device, ...]):
         plan: OperationPlan = group.items[0].payload[3]
         n_real = len(group.items)
 
@@ -656,17 +736,24 @@ class TorchProcessingEngine:
                                              for oi, v in aspect_long.items()
                                              if oi in run})
 
+        # each output with valid dims leaves the device cropped to the
+        # group's largest valid extent, rounded up to /64
+        def _q64(v: int) -> int:
+            return -(-v // 64) * 64
+
+        crops = {oi: (_q64(int(hw[:n_real, 0].max())), _q64(int(hw[:n_real, 1].max())))
+                 for oi, hw in out_hws.items()}
         t_dev = time.monotonic()
         imgs, src_hw = group.pack(pad_batch_to=b)
         METRICS.observe("engine_pack_ms", (time.monotonic() - t_dev) * 1000.0)
-        outs = step_chw(self._upload(imgs, group, device), src_hw,
-                        {run[oi]: v for oi, v in out_hws.items() if oi in run},
-                        specs)
-
-        # crop on the device to the group's largest valid output (rounded
-        # up to /64) before the copy to the host
-        def _q64(v: int, cap: int) -> int:
-            return min(-(-v // 64) * 64, cap)
+        run_hws = {run[oi]: v for oi, v in out_hws.items() if oi in run}
+        if len(cards) == 1:
+            outs = step_chw(self._upload(imgs, group, cards[0]), src_hw,
+                            run_hws, specs)
+        else:
+            outs = step_strips(self._upload_strips(imgs, src_hw, group, cards),
+                               run_hws, specs,
+                               {run[oi]: v for oi, v in crops.items() if oi in run})
 
         max_h = max(it.hw[0] for it in group.items)
         max_w = max(it.hw[1] for it in group.items)
@@ -676,9 +763,9 @@ class TorchProcessingEngine:
                 outs_np.append(("splice", op))
                 continue
             o = outs[run[oi]]
+            oh, ow = o.shape[2:]
             if oi in out_hws:
-                o = o[:, :, :_q64(int(out_hws[oi][:n_real, 0].max()), o.shape[2]),
-                      :_q64(int(out_hws[oi][:n_real, 1].max()), o.shape[3])]
+                oh, ow = min(crops[oi][0], oh), min(crops[oi][1], ow)
             elif op.type in FULL_BUCKET_OPS:
                 # a full-bucket output that every item wants as a JPEG: the
                 # encode front half runs on the device and the finish stage
@@ -689,32 +776,50 @@ class TorchProcessingEngine:
                         for it in group.items):
                     outs_np.append(self._encode_coefs(o, group, max_h, max_w))
                     continue
-                o = o[:, :, :_q64(max_h, o.shape[2]), :_q64(max_w, o.shape[3])]
-            outs_np.append(o.cpu().numpy())
+                oh, ow = min(_q64(max_h), oh), min(_q64(max_w), ow)
+            outs_np.append(_to_host(o, oh, ow))
         METRICS.observe("engine_device_ms", (time.monotonic() - t_dev) * 1000.0)
         METRICS.inc("engine_device_images", n_real)
         return plan, outs_np, out_hws, "chw"
 
-    def _encode_coefs(self, canvas: torch.Tensor, group, max_h: int,
-                      max_w: int):
+    def _encode_coefs(self, o, group, max_h: int, max_w: int):
         """A full-bucket output every item wants as a JPEG: kernel B3 over
         the group's largest valid extent rounded up to /16 (edges past each
         image's valid dims replicate; a bucket narrower than that extent is
         padded, the pad never read), then the int16 canvases to the host.
-        Pad rows get valid (1, 1)."""
+        Pad rows get valid (1, 1). A StripOut (a strip run) is encoded
+        strip by strip on each strip's card, each strip's valid width
+        rebased to it, and its canvases stitched on the host."""
         mh, mw = -(-max_h // 16) * 16, -(-max_w // 16) * 16
-        rgb = canvas[:, :, :mh, :mw]
-        if tuple(rgb.shape[2:]) != (mh, mw):
-            rgb = torch.nn.functional.pad(
-                rgb, (0, mw - rgb.shape[3], 0, mh - rgb.shape[2]))
-        vh = np.ones((canvas.shape[0], 2), dtype=np.int32)
-        vh[:len(group.items)] = [it.hw for it in group.items]
+        parts = ([(0, o)] if isinstance(o, torch.Tensor) else
+                 [(int(r[0, 0]), p) for p, r in zip(o.parts, o.ranges) if r[0, 0] < mw])
+        hw = np.ones((parts[0][1].shape[0], 2), dtype=np.int32)
+        hw[:len(group.items)] = [it.hw for it in group.items]
         qt = quality_qtables(self.jpeg_quality)
-        yc, cbc, crc = encode_420(
-            rgb, torch.from_numpy(vh).to(canvas.device),
-            torch.from_numpy(qt.astype(np.float32)).to(canvas.device))
-        return ("coef420", yc.cpu().numpy(), cbc.cpu().numpy(),
-                crc.cpu().numpy(), qt)
+        coefs = []
+        for x0, canvas in parts:
+            ew = min(mw - x0, -(-canvas.shape[3] // 16) * 16)
+            rgb = canvas[:, :, :mh, :ew]
+            if tuple(rgb.shape[2:]) != (mh, ew):
+                rgb = torch.nn.functional.pad(
+                    rgb, (0, ew - rgb.shape[3], 0, mh - rgb.shape[2]))
+            vh = hw.copy()
+            vh[:, 1] = np.clip(hw[:, 1] - x0, 1, ew)
+            coefs.append((x0, encode_420(
+                rgb, torch.from_numpy(vh).to(canvas.device),
+                torch.from_numpy(qt.astype(np.float32)).to(canvas.device))))
+        if len(coefs) == 1:
+            return ("coef420", *(c.cpu().numpy() for c in coefs[0][1]), qt)
+        b = hw.shape[0]
+        yc = np.empty((b, mh, mw), np.int16)
+        cbc = np.empty((b, mh // 2, mw // 2), np.int16)
+        crc = np.empty_like(cbc)
+        for x0, (y, cb, cr) in coefs:
+            x1 = x0 + int(y.shape[2])
+            yc[:, :, x0:x1] = y.cpu().numpy()
+            cbc[:, :, x0 // 2:x1 // 2] = cb.cpu().numpy()
+            crc[:, :, x0 // 2:x1 // 2] = cr.cpu().numpy()
+        return ("coef420", yc, cbc, crc, qt)
 
     def finish_item(self, group, i: int, plan, outs_np, out_hws,
                     layout: str = "chw") -> EngineResult:

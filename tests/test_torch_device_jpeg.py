@@ -1,11 +1,12 @@
 """IMAGEPROCESSOR_DEVICE_JPEG on the port: the operator's switch that keeps
 JPEG decode and encode on the host (the reference's
-tests/test_engine_device_jpeg.py, without its core-count threshold: the
-port's auto policy is the card).
+tests/test_engine_device_jpeg.py).
 
 * parsing: 1/true/yes on, 0/false/no off, unset or anything else the auto
-  policy (on), read once at construction; the keyword wins over the
-  variable;
+  policy, read once at construction; the keyword wins over the variable.
+  The auto policy is the reference's: on where the host has fewer usable
+  cores than IMAGEPROCESSOR_DEVICE_JPEG_CORES (default 127), which holds
+  on the hosts this suite runs on;
 * with 0: a JPEG that needs pixels decodes on the host (layout "hwc"),
   kernel B1's and B3's wrappers are never called, and the artifacts meet
   the engine contracts of tests/test_torch_engine.py against the
@@ -101,12 +102,13 @@ def test_keyword_wins_over_the_variable(tmp_path, monkeypatch, keyword):
 
 
 def test_the_core_threshold_is_not_read(tmp_path, monkeypatch):
-    """IMAGEPROCESSOR_DEVICE_JPEG_CORES is the reference's TPU crossover;
-    the port's auto policy ignores it."""
+    """IMAGEPROCESSOR_DEVICE_JPEG_CORES is read, as the reference reads it:
+    at 0 no host has fewer usable cores, so the auto policy keeps the
+    codec on the host."""
     monkeypatch.delenv("IMAGEPROCESSOR_DEVICE_JPEG", raising=False)
     monkeypatch.setenv("IMAGEPROCESSOR_DEVICE_JPEG_CORES", "0")
     eng = TorchProcessingEngine(PortLocalFS(str(tmp_path)), device="cpu")
-    assert eng.device_jpeg is True
+    assert eng.device_jpeg is False
     eng.close()
 
 
@@ -187,3 +189,29 @@ def test_switch_on_takes_the_device_codec(tmp_path, codec_calls, monkeypatch,
     assert all(r.result.status is port_domain.ImageStatus.COMPLETED for r in res)
     assert codec_calls["decode_coefs"] == 3   # one group per bucket
     assert codec_calls["encode_420"] == (3 if plan_name == "flip" else 0)
+
+
+@pytest.mark.parametrize("cores,on", [("1", False), ("100000", True)])
+@pytest.mark.parametrize("plan_name", ["default", "flip"])
+def test_the_core_threshold_decides_the_auto_policy(tmp_path, codec_calls,
+                                                    monkeypatch, plan_name,
+                                                    cores, on):
+    """IMAGEPROCESSOR_DEVICE_JPEG unset: the device codec serves a host
+    with fewer usable cores than IMAGEPROCESSOR_DEVICE_JPEG_CORES. At 1 the
+    codec stays on the host (B1 and B3 are never called); at 100000 the
+    same uploads go through B1, and the flip's JPEG rendition through B3
+    (splice off)."""
+    monkeypatch.delenv("IMAGEPROCESSOR_DEVICE_JPEG", raising=False)
+    monkeypatch.setenv("IMAGEPROCESSOR_DEVICE_JPEG_CORES", cores)
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
+    assert engine_mod.usable_cores() < 100000
+    port = TorchProcessingEngine(PortLocalFS(str(tmp_path)), device="cpu")
+    try:
+        assert port.device_jpeg is on
+        res = port.process_tasks([(to_port(make_task(PLANS[plan_name])), b)
+                                  for b in BLOBS])
+    finally:
+        port.close()
+    assert all(r.result.status is port_domain.ImageStatus.COMPLETED for r in res)
+    assert codec_calls["decode_coefs"] == (3 if on else 0)
+    assert codec_calls["encode_420"] == (3 if on and plan_name == "flip" else 0)
