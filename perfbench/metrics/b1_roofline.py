@@ -1,0 +1,21 @@
+"""Kernel B1 (csrc/jpeg_decode.cu `decode_kernel`): the least time the
+card could take for the traced window's decodes, counted from each real
+image's own extent (roofline.b1_work), over the summed time of its
+launches in the trace, in percent. Set by bytes at 3.35 TB/s."""
+
+from perfbench import roofline
+
+LAYER = "kernels"
+UNIT, SOURCE, MOVES = "%", "device_trace", "images_per_s"
+KERNEL = "decode_kernel"
+
+
+def read(run):
+    t = sum(b - a for n, _c, a, b in run.device_events if KERNEL in n)
+    least = 0.0
+    for s in run.spans.of("device_group", run.trace_lo, run.trace_hi):
+        if s.info["layout"].startswith("coef:"):
+            fh, fw = (int(c) for c in s.info["layout"][5:7])
+            least += sum(roofline.bound_s(*roofline.b1_work(h, w, fh, fw))[0]
+                         for h, w in s.info["hw"])
+    return 100.0 * least / t if t > 0 and least > 0 else None
