@@ -135,7 +135,7 @@ Phases (any failure exits non-zero):
    produce to the results topic, after a warm-up of each bucket and batch
    size. It prints p50, p95, p99 and images/s for the batch worker and
    for the pipelined worker with queue_wait_ms, batcher_wait_ms,
-   engine_pack_ms, engine_device_ms and span_{decode,device,encode}_ms
+   span_{decode,pack,device,encode}_ms
    beside them, then repeats the pipelined run under
    utils/tracing.profile_capture and prints the share of the window in
    which the card ran a kernel or a copy. Nothing is asserted about the
@@ -202,7 +202,7 @@ Phases (any failure exits non-zero):
    cuda:0: every artifact must be byte-identical, and each of B1-B4 must
    launch twice as often (once per strip of each group). For the 12 MP
    group's device stage it prints each card's peak allocation and
-   engine_device_ms at both settings. With two cards or more the strips
+   span_device_ms at both settings. With two cards or more the strips
    also run over cuda:0 and cuda:1 (byte-identical, every kernel launched
    on both cards); with one, a line says that part did not run.
 
@@ -917,8 +917,8 @@ def phase_workers(blobs, png_blob) -> dict:
                 log(f"[15 workers] {kind}: {len(ups)} uploads over HTTP completed in "
                     f"{wall:.2f} s (host clock); launches {counts}; " + "; ".join(
                         f"{k} n={t[k]['count']} p50={t[k]['p50']:.1f} max={t[k]['max']:.1f}"
-                        for k in ("queue_wait_ms", "batcher_wait_ms", "engine_pack_ms",
-                                  "engine_device_ms", "engine_encode_ms") if k in t))
+                        for k in ("queue_wait_ms", "batcher_wait_ms", "span_pack_ms",
+                                  "span_device_ms", "engine_encode_ms") if k in t))
                 for k in KERNEL_KEYS:
                     total[k] += counts[k]
         finally:
@@ -1746,7 +1746,7 @@ def phase_space(card: str, blobs: list) -> dict:
     launched twice as often (once per strip of each group that ran it).
     For the 12 MP group's device stage (the default plan and the form's
     three flags), each card's peak allocation above what it held before
-    (max_memory_allocated, reset just before) and engine_device_ms at both
+    (max_memory_allocated, reset just before) and span_device_ms at both
     settings. With two cards or more, the same over cuda:0 and cuda:1,
     every kernel launched on both cards. Every launch count is set to 0
     just before each run and read just after. Returns the launches of the
@@ -1828,7 +1828,7 @@ def phase_space(card: str, blobs: list) -> dict:
 
     def device_stage(engine, group):
         """A warm device_group of ``group``: -> ({card: peak MB above its
-        allocation before}, engine_device_ms)."""
+        allocation before}, span_device_ms)."""
         cards = sorted({c.index for r in engine.replicas for c in r})
         engine.device_group(group)
         for c in cards:
@@ -1841,7 +1841,7 @@ def phase_space(card: str, blobs: list) -> dict:
         for c in cards:
             torch.cuda.synchronize(c)
         peak = {c: (torch.cuda.max_memory_allocated(c) - base[c]) / 1e6 for c in cards}
-        return peak, METRICS.snapshot()["timings"]["engine_device_ms"]["max"]
+        return peak, METRICS.snapshot()["timings"]["span_device_ms"]["max"]
 
     have = torch.cuda.device_count()
     engines = []
@@ -1892,7 +1892,7 @@ def phase_space(card: str, blobs: list) -> dict:
                 group = group_12mp(eng, plans[name])
                 (peak, ms), _ = counted(lambda: device_stage(eng, group))
                 log(f"[20 space] {card}: {name} plan, 8 x 12 MP group, {label}: "
-                    f"engine_device_ms {ms:.1f}, peak MB above the card's "
+                    f"span_device_ms {ms:.1f}, peak MB above the card's "
                     "allocation before the call " + ", ".join(
                         f"cuda:{c} {v:.1f}" for c, v in peak.items())
                     + f" (card total {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB)")
@@ -2367,8 +2367,8 @@ def main(argv: list[str] | None = None) -> int:
         stages, and the splice and coefficient-transform emits per image."""
         snap = METRICS.snapshot()
         t = snap["timings"]
-        parts = [f"{k[7:]} max {t[k]['max']:.1f}" for k in (
-            "engine_decode_ms", "engine_device_ms", "engine_encode_ms") if k in t]
+        parts = [f"{k.split('_', 1)[1]} max {t[k]['max']:.1f}" for k in (
+            "engine_decode_ms", "span_device_ms", "engine_encode_ms") if k in t]
         for k in ("engine_splice_emit_ms", "engine_coeftx_emit_ms"):
             if k in t:
                 parts.append(f"{k[7:]} p50 {t[k]['p50']:.2f} max {t[k]['max']:.2f}")
@@ -2784,11 +2784,11 @@ def main(argv: list[str] | None = None) -> int:
                 stages = stage_line()
                 snap = METRICS.snapshot()
                 n_coef = int(snap["counters"].get("engine_coeftx_images", 0))
-                dev = snap["timings"]["engine_device_ms"]
+                dev = snap["timings"]["span_device_ms"]
                 from_coefs = splice_on and pname in coef_plans
-                if from_coefs:
-                    ok = (not any(counts.values()) and dev["max"] == 0.0
-                          and n_coef == n_jpeg)
+                if from_coefs:   # nothing packed, copied or launched
+                    ok = (not any(counts.values()) and n_coef == n_jpeg
+                          and not {"span_pack_ms", "span_h2d_ms"} & set(snap["timings"]))
                 else:
                     ok = (counts["B1"] == dev["count"] and counts["B1"] >= 1
                           and counts["B4"] == 0 and n_coef == 0

@@ -54,7 +54,8 @@ Without --latency it prints ONE JSON line with these keys (``KEYS``):
                      TorchProcessingEngine.process_tasks of the ``batch``
                      seeded JPEGs, thumbnail + resize (the empty-flag
                      plan), artifacts saved to a LocalFSObjectStore
-  engine_stages_ms   ms; the p50 of each engine_* timing of that run
+  engine_stages_ms   ms; the p50 of each engine_* and span_* timing of
+                     that run
   end_to_end_one_host_core_images_per_sec, end_to_end_path
                      images/s and the path it prices; end_to_end_model:
                      the reference's model of one host core plus the
@@ -190,8 +191,8 @@ RUN_KEYS = ("p50_ms", "p90_ms", "p95_ms", "p99_ms", "max_ms", "small_p50_ms",
 LATENCY_KEYS = ("metric", "value", "unit", "vs_baseline", "note", *RUN_KEYS,
                 *(f"pipelined_{k}" for k in RUN_KEYS))
 STAGE_KEYS = ("queue_wait_ms", "batcher_wait_ms", "engine_decode_ms",
-              "engine_pack_ms", "engine_device_ms", "engine_encode_ms",
-              "span_decode_ms", "span_device_ms", "span_encode_ms",
+              "engine_encode_ms", "span_decode_ms", "span_pack_ms",
+              "span_device_ms", "span_encode_ms",
               "worker_batch_ms")
 
 _T0 = time.monotonic()
@@ -541,7 +542,7 @@ def bench_engine(device: torch.device, batch: int, src_hw_px=(3000, 4000),
         if failed:
             raise RuntimeError(f"engine run: {len(failed)} tasks failed: {failed[:2]}")
         stages = {k: v["p50"] for k, v in METRICS.snapshot()["timings"].items()
-                  if k.startswith("engine_")}
+                  if k.startswith(("engine_", "span_"))}
     finally:
         engine.close()
         shutil.rmtree(root, ignore_errors=True)

@@ -57,6 +57,13 @@ launches of kernel B4), the baseline of the batched path and the
 fallback of the coefficient routes. Failures are classified like the
 reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
 device; nacked for redelivery).
+
+The stages are spans (utils/tracing.py): ``decode`` and ``encode`` per
+upload, ``save`` per stored rendition inside ``encode``; ``device`` per
+group, with ``pack``, one ``h2d`` per host-to-device copy, ``launch``
+and one ``d2h`` per device-to-host copy (which first waits for the
+kernels) inside it. ``engine_h2d_bytes`` and ``engine_d2h_bytes`` count
+the bytes copied, ``engine_pack_images`` the images packed.
 """
 
 from __future__ import annotations
@@ -132,6 +139,7 @@ from imageprocessor_tpu_torch.runtime.codecs import (
 )
 from imageprocessor_tpu_torch.runtime.paths import generate_path
 from imageprocessor_tpu_torch.utils.metrics import METRICS
+from imageprocessor_tpu_torch.utils.tracing import span
 
 log = logging.getLogger("imageprocessor_tpu_torch.engine")
 
@@ -160,14 +168,34 @@ def usable_cores() -> int:
         return os.cpu_count() or 1
 
 
+def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host-to-device copy of ``a``, in an ``h2d`` span; its bytes
+    count in ``engine_h2d_bytes``."""
+    with span("h2d", bytes=a.nbytes):
+        t = torch.from_numpy(a).to(device)
+    METRICS.inc("engine_h2d_bytes", a.nbytes)
+    return t
+
+
+def _d2h(copy) -> np.ndarray:
+    """``copy()``, a device-to-host copy (which first waits for the work
+    queued before it), in a ``d2h`` span; its bytes count in
+    ``engine_d2h_bytes``."""
+    with span("d2h") as attrs:
+        out = copy()
+        attrs["bytes"] = out.nbytes
+    METRICS.inc("engine_d2h_bytes", out.nbytes)
+    return out
+
+
 def _to_host(o, h: int, w: int) -> np.ndarray:
     """A device output's top-left (h, w) on the host: a (B, 3, H, W)
     tensor, the StripOut of a strip run, or a host array already."""
     if isinstance(o, torch.Tensor):
-        return o[:, :, :h, :w].cpu().numpy()
+        return _d2h(lambda: o[:, :, :h, :w].cpu().numpy())
     if isinstance(o, np.ndarray):
         return o[:, :, :h, :w]
-    return o.to_host(h, w)
+    return _d2h(lambda: o.to_host(h, w))
 
 
 @dataclass
@@ -278,10 +306,11 @@ class TorchProcessingEngine:
         return isinstance(exc, RuntimeError) and mod.startswith("torch")
 
     def _save(self, path: str, data: bytes, mime: str) -> None:
-        try:
-            self.store.save_processed(path, data, mime)
-        except Exception as exc:
-            raise StorageError(f"save {path}: {exc}") from exc
+        with span("save", bytes=len(data)):
+            try:
+                self.store.save_processed(path, data, mime)
+            except Exception as exc:
+                raise StorageError(f"save {path}: {exc}") from exc
 
     def _encode_and_save(self, task: ProcessingTask, op: NormalizedOp,
                          arr: np.ndarray, fmt: str) -> Artifact:
@@ -422,7 +451,17 @@ class TorchProcessingEngine:
     # ---------------------------------------------------------------- decode
 
     def decode_for_plan_ex(self, data: bytes, plan: OperationPlan | None,
-                           task_format: str | None = None):
+                           task_format: str | None = None,
+                           image_id: str | None = None):
+        """``_decode_for_plan`` in a ``decode`` span: the upload's
+        ``image_id`` where the caller passes it, and the layout."""
+        with span("decode", image_id=image_id) as attrs:
+            out = self._decode_for_plan(data, plan, task_format)
+            attrs["layout"] = out[2]
+        return out
+
+    def _decode_for_plan(self, data: bytes, plan: OperationPlan | None,
+                         task_format: str | None = None):
         """Decode one blob for the device path: (image, detected_format,
         layout, valid_hw, splice_ctx).
 
@@ -549,11 +588,13 @@ class TorchProcessingEngine:
                 results[i] = self._failed(task, f"Operation failed: {exc}")
 
         def _dec(i):
-            fmt = tasks_with_data[i][0].format
+            task, data = tasks_with_data[i]
+            fmt = task.format
             try:
                 return self.decode_for_plan_ex(
-                    tasks_with_data[i][1], plans[i],
-                    task_format=fmt if isinstance(fmt, str) else None)
+                    data, plans[i],
+                    task_format=fmt if isinstance(fmt, str) else None,
+                    image_id=task.image_id)
             except Exception as exc:  # noqa: BLE001 — isolated per image
                 return exc
 
@@ -608,10 +649,12 @@ class TorchProcessingEngine:
         Wb) u8 bucket: kernel B1 for coefficient rows, a permute for HWC."""
         if group.layout.startswith("coef"):
             fh, fw = coef_factors(group.layout)
-            yc, cbc, crc, qt, cv = (torch.from_numpy(a).to(device) for a in imgs)
-            return decode_coefs(yc, cbc, crc, qt, cv, fh, fw, group.bucket)
-        x = torch.from_numpy(imgs).to(device)
-        return x.permute(0, 3, 1, 2).contiguous()
+            yc, cbc, crc, qt, cv = (_h2d(a, device) for a in imgs)
+            with span("launch"):
+                return decode_coefs(yc, cbc, crc, qt, cv, fh, fw, group.bucket)
+        x = _h2d(imgs, device)
+        with span("launch"):
+            return x.permute(0, 3, 1, 2).contiguous()
 
     def _upload_strips(self, imgs, src_hw, group, cards) -> Strips:
         """Put packed rows of a group on a replica's cards as column strips
@@ -630,14 +673,15 @@ class TorchProcessingEngine:
                 e = -(-b // (8 * fw)) * 8 * fw   # whole MCUs, inside the canvas
                 cvk = cv.copy()
                 cvk[:, 1] = np.clip(cv[:, 1] - a // fw, 1, (e - a) // fw)
-                ops = (yc[:, :, a:e], cbc[:, :, a // fw:e // fw],
-                       crc[:, :, a // fw:e // fw], qt, cvk)
-                parts.append(decode_coefs(
-                    *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                      for x in ops), fh, fw, (hb, b - a)))
+                ops = [_h2d(np.ascontiguousarray(x), dev) for x in (
+                    yc[:, :, a:e], cbc[:, :, a // fw:e // fw],
+                    crc[:, :, a // fw:e // fw], qt, cvk)]
+                with span("launch"):
+                    parts.append(decode_coefs(*ops, fh, fw, (hb, b - a)))
             else:
-                x = torch.from_numpy(np.ascontiguousarray(imgs[:, :, a:b])).to(dev)
-                parts.append(x.permute(0, 3, 1, 2).contiguous())
+                x = _h2d(np.ascontiguousarray(imgs[:, :, a:b]), dev)
+                with span("launch"):
+                    parts.append(x.permute(0, 3, 1, 2).contiguous())
         return Strips(parts, bounds, src_hw)
 
     def device_group(self, group):
@@ -648,19 +692,23 @@ class TorchProcessingEngine:
         scanned coefficients (a spliced watermark, a coefficient-domain
         transform). With several replicas the group runs whole on the
         next free one, on its cards' streams; callers on several threads
-        keep every replica busy."""
-        if self._free is None:
-            self.replica_groups[0] += 1
-            return self._device_group(group, self.replicas[0])
-        k = self._free.get()
-        try:
-            self.replica_groups[k] += 1
-            with contextlib.ExitStack() as streams:
-                for stream in self._streams[k]:
-                    streams.enter_context(torch.cuda.stream(stream))
-                return self._device_group(group, self.replicas[k])
-        finally:
-            self._free.put(k)
+        keep every replica busy. A ``device`` span covers the call, the
+        wait for a replica included; inside it ``pack``, ``h2d``,
+        ``launch`` and ``d2h`` spans."""
+        with span("device", images=len(group.items), layout=group.layout,
+                  hw=[tuple(int(v) for v in it.hw) for it in group.items]):
+            if self._free is None:
+                self.replica_groups[0] += 1
+                return self._device_group(group, self.replicas[0])
+            k = self._free.get()
+            try:
+                self.replica_groups[k] += 1
+                with contextlib.ExitStack() as streams:
+                    for stream in self._streams[k]:
+                        streams.enter_context(torch.cuda.stream(stream))
+                    return self._device_group(group, self.replicas[k])
+            finally:
+                self._free.put(k)
 
     def _device_group(self, group, cards: tuple[torch.device, ...]):
         plan: OperationPlan = group.items[0].payload[3]
@@ -678,7 +726,6 @@ class TorchProcessingEngine:
             splice_skip = {oi for oi, op in enumerate(plan.ops)
                            if op.type is OperationType.WATERMARK}
         if splice_skip and len(splice_skip) == len(plan.ops):
-            METRICS.observe("engine_device_ms", 0.0)
             METRICS.inc("engine_device_images", n_real)
             return plan, [("splice", op) for op in plan.ops], {}, group.layout
 
@@ -743,17 +790,19 @@ class TorchProcessingEngine:
 
         crops = {oi: (_q64(int(hw[:n_real, 0].max())), _q64(int(hw[:n_real, 1].max())))
                  for oi, hw in out_hws.items()}
-        t_dev = time.monotonic()
-        imgs, src_hw = group.pack(pad_batch_to=b)
-        METRICS.observe("engine_pack_ms", (time.monotonic() - t_dev) * 1000.0)
+        with span("pack", images=n_real):
+            imgs, src_hw = group.pack(pad_batch_to=b)
+        METRICS.inc("engine_pack_images", n_real)
         run_hws = {run[oi]: v for oi, v in out_hws.items() if oi in run}
         if len(cards) == 1:
-            outs = step_chw(self._upload(imgs, group, cards[0]), src_hw,
-                            run_hws, specs)
+            x = self._upload(imgs, group, cards[0])
+            with span("launch"):
+                outs = step_chw(x, src_hw, run_hws, specs)
         else:
-            outs = step_strips(self._upload_strips(imgs, src_hw, group, cards),
-                               run_hws, specs,
-                               {run[oi]: v for oi, v in crops.items() if oi in run})
+            x = self._upload_strips(imgs, src_hw, group, cards)
+            with span("launch"):
+                outs = step_strips(x, run_hws, specs, {
+                    run[oi]: v for oi, v in crops.items() if oi in run})
 
         max_h = max(it.hw[0] for it in group.items)
         max_w = max(it.hw[1] for it in group.items)
@@ -778,7 +827,6 @@ class TorchProcessingEngine:
                     continue
                 oh, ow = min(_q64(max_h), oh), min(_q64(max_w), ow)
             outs_np.append(_to_host(o, oh, ow))
-        METRICS.observe("engine_device_ms", (time.monotonic() - t_dev) * 1000.0)
         METRICS.inc("engine_device_images", n_real)
         return plan, outs_np, out_hws, "chw"
 
@@ -805,28 +853,35 @@ class TorchProcessingEngine:
                     rgb, (0, ew - rgb.shape[3], 0, mh - rgb.shape[2]))
             vh = hw.copy()
             vh[:, 1] = np.clip(hw[:, 1] - x0, 1, ew)
-            coefs.append((x0, encode_420(
-                rgb, torch.from_numpy(vh).to(canvas.device),
-                torch.from_numpy(qt.astype(np.float32)).to(canvas.device))))
+            vh_t = torch.from_numpy(vh).to(canvas.device)
+            qt_t = torch.from_numpy(qt.astype(np.float32)).to(canvas.device)
+            with span("launch"):
+                coefs.append((x0, encode_420(rgb, vh_t, qt_t)))
         if len(coefs) == 1:
-            return ("coef420", *(c.cpu().numpy() for c in coefs[0][1]), qt)
+            return ("coef420", *(_d2h(lambda c=c: c.cpu().numpy())
+                                for c in coefs[0][1]), qt)
         b = hw.shape[0]
         yc = np.empty((b, mh, mw), np.int16)
         cbc = np.empty((b, mh // 2, mw // 2), np.int16)
         crc = np.empty_like(cbc)
         for x0, (y, cb, cr) in coefs:
             x1 = x0 + int(y.shape[2])
-            yc[:, :, x0:x1] = y.cpu().numpy()
-            cbc[:, :, x0 // 2:x1 // 2] = cb.cpu().numpy()
-            crc[:, :, x0 // 2:x1 // 2] = cr.cpu().numpy()
+            yc[:, :, x0:x1] = _d2h(lambda: y.cpu().numpy())
+            cbc[:, :, x0 // 2:x1 // 2] = _d2h(lambda: cb.cpu().numpy())
+            crc[:, :, x0 // 2:x1 // 2] = _d2h(lambda: cr.cpu().numpy())
         return ("coef420", yc, cbc, crc, qt)
 
     def finish_item(self, group, i: int, plan, outs_np, out_hws,
                     layout: str = "chw") -> EngineResult:
+        """``_finish_item`` in an ``encode`` span, with the upload's
+        ``image_id``; each store save inside is a ``save`` span."""
+        with span("encode", image_id=group.items[i].payload[1].image_id):
+            return self._finish_item(group, i, plan, outs_np, out_hws)
+
+    def _finish_item(self, group, i: int, plan, outs_np, out_hws) -> EngineResult:
         """Stage 3 for one image: crop the valid regions, then splice, emit
         or encode each output, and save. Fail-fast across the image's op
-        list (reference semantics)."""
-        del layout  # pixel outputs are always planar here
+        list (reference semantics). Pixel outputs are always planar here."""
         it = group.items[i]
         _task_idx, task, fmt, _plan = it.payload
         out = EngineResult(result=ProcessingResult(

@@ -76,9 +76,11 @@ class PipelinedWorker(Worker):
             # compose volume, a Kafka reconnect) must not kill the
             # decode thread — the whole pipeline deadlocks without it.
             try:
-                msgs = self.broker.poll(topic, group_id,
-                                        max_n=self.cfg.worker.batch_size,
-                                        lease_s=self.cfg.worker.lease_s)
+                with span("poll") as attrs:
+                    msgs = self.broker.poll(topic, group_id,
+                                            max_n=self.cfg.worker.batch_size,
+                                            lease_s=self.cfg.worker.lease_s)
+                    attrs["n"] = len(msgs)
                 if not msgs:
                     self._flush_due()
                     self._stop.wait(self._idle_sleep)
@@ -138,12 +140,12 @@ class PipelinedWorker(Worker):
         task, blob = got
         try:
             plan = normalize_operations(task.operations)
-            with span("decode"):
-                arr, detected, layout, valid_hw, sctx = \
-                    self.engine.decode_for_plan_ex(
-                        blob, plan,
-                        task_format=task.format
-                        if isinstance(task.format, str) else None)
+            arr, detected, layout, valid_hw, sctx = \
+                self.engine.decode_for_plan_ex(
+                    blob, plan,
+                    task_format=task.format
+                    if isinstance(task.format, str) else None,
+                    image_id=task.image_id)
         except (DecodeError, InvalidParamsError,
                 UnsupportedOperationError, ValueError) as exc:
             prefix = ("Failed to decode image" if isinstance(exc, DecodeError)
@@ -208,7 +210,7 @@ class PipelinedWorker(Worker):
             try:
                 # The watchdog bounds a wedged device RPC (no exception
                 # ever fires from a hung transport; see utils/watchdog.py).
-                with span("device"), self._watchdog.armed("device_group"):
+                with self._watchdog.armed("device_group"):
                     plan, outs_np, out_hws, layout = \
                         self.engine.device_group(group)
                 self._finish_q.put((group, plan, outs_np, out_hws, layout))
@@ -235,10 +237,8 @@ class PipelinedWorker(Worker):
             def _one(i):
                 msg, task, _fmt, _plan = group.items[i].payload
                 try:
-                    with span("encode"):
-                        res = self.engine.finish_item(group, i, plan,
-                                                      outs_np, out_hws,
-                                                      layout)
+                    res = self.engine.finish_item(group, i, plan,
+                                                  outs_np, out_hws, layout)
                 except Exception as exc:  # keep the stage thread alive
                     log.error("Finish stage item failed", task_id=task.id,
                               error=str(exc), exc_info=True)

@@ -51,6 +51,7 @@ from imageprocessor_tpu_torch.storage.object_store import (
 )
 from imageprocessor_tpu_torch.utils import get_logger, retry_sync
 from imageprocessor_tpu_torch.utils.metrics import METRICS
+from imageprocessor_tpu_torch.utils.tracing import span
 from imageprocessor_tpu_torch.utils.watchdog import Watchdog
 
 log = get_logger("worker")
@@ -162,10 +163,12 @@ class Worker:
         try:
             # Retry transient storage errors (reference wraps every
             # MinIO call in retry.Strategy); a missing blob is final.
-            blob = retry_sync(
-                self.cfg.retry_strategy(),
-                lambda path=task.original_path: self.store.get_object(path),
-                retryable=lambda e: not isinstance(e, ObjectNotFound))
+            with span("fetch", image_id=task.image_id) as attrs:
+                blob = retry_sync(
+                    self.cfg.retry_strategy(),
+                    lambda path=task.original_path: self.store.get_object(path),
+                    retryable=lambda e: not isinstance(e, ObjectNotFound))
+                attrs["bytes"] = len(blob)
         except ObjectNotFound:
             # The blob is gone (e.g. the image was deleted while its
             # task sat in the queue): PERMANENT — nacking would
@@ -190,9 +193,11 @@ class Worker:
         """Poll one micro-batch, process it, ack/nack. Returns #messages."""
         topic = self.cfg.broker.processing_topic
         group = self.cfg.broker.group_id
-        msgs = self.broker.poll(topic, group,
-                                max_n=max_n or self.cfg.worker.batch_size,
-                                lease_s=self.cfg.worker.lease_s)
+        with span("poll") as attrs:
+            msgs = self.broker.poll(topic, group,
+                                    max_n=max_n or self.cfg.worker.batch_size,
+                                    lease_s=self.cfg.worker.lease_s)
+            attrs["n"] = len(msgs)
         if not msgs:
             return 0
         t0 = time.monotonic()
@@ -335,38 +340,39 @@ class Worker:
         (commit-after-success, worker.go:125-146). Never raises: one
         message's broker/metadata trouble must not abort its batchmates'
         completions."""
-        recorded = self._record(task, eng_res)
-        res = eng_res.result
-        if not recorded:
-            # The metadata writes failed (DB down): acking a COMPLETED
-            # result would mark the work committed while the DB has no
-            # record of it, and acking a FAILED one would strand the
-            # image in 'processing' forever (the UI polls it
-            # indefinitely). Leave for redelivery either way — outputs
-            # and writes are idempotent, the replay re-runs them.
-            log.error("Metadata writes failed; leaving for redelivery",
-                      image_id=task.image_id, status=res.status.value)
-            self._safe_nack(msg)
-            METRICS.inc("worker_record_failures")
-            return
-        if res.status is ImageStatus.COMPLETED:
-            self._safe_ack(msg)
-            METRICS.inc("worker_completed")
-        elif eng_res.error_kind == TRANSIENT:
-            self._safe_nack(msg)
-            METRICS.inc("worker_failed_transient")
-        else:
-            # Typed classification (engine tags every failure); the
-            # reference replays failures forever on rebalance — here
-            # permanent input errors are acked to avoid poison loops.
-            self._safe_ack(msg)
-            METRICS.inc("worker_failed_permanent")
-        try:
-            self.broker.produce(self.cfg.broker.results_topic,
-                                task.image_id.encode(), res.to_json())
-        except Exception:
-            log.error("Failed to publish result", image_id=task.image_id)
-        self._deliver_webhook(res)
+        with span("record", image_id=task.image_id):
+            recorded = self._record(task, eng_res)
+            res = eng_res.result
+            if not recorded:
+                # The metadata writes failed (DB down): acking a COMPLETED
+                # result would mark the work committed while the DB has no
+                # record of it, and acking a FAILED one would strand the
+                # image in 'processing' forever (the UI polls it
+                # indefinitely). Leave for redelivery either way — outputs
+                # and writes are idempotent, the replay re-runs them.
+                log.error("Metadata writes failed; leaving for redelivery",
+                          image_id=task.image_id, status=res.status.value)
+                self._safe_nack(msg)
+                METRICS.inc("worker_record_failures")
+                return
+            if res.status is ImageStatus.COMPLETED:
+                self._safe_ack(msg)
+                METRICS.inc("worker_completed")
+            elif eng_res.error_kind == TRANSIENT:
+                self._safe_nack(msg)
+                METRICS.inc("worker_failed_transient")
+            else:
+                # Typed classification (engine tags every failure); the
+                # reference replays failures forever on rebalance — here
+                # permanent input errors are acked to avoid poison loops.
+                self._safe_ack(msg)
+                METRICS.inc("worker_failed_permanent")
+            try:
+                self.broker.produce(self.cfg.broker.results_topic,
+                                    task.image_id.encode(), res.to_json())
+            except Exception:
+                log.error("Failed to publish result", image_id=task.image_id)
+            self._deliver_webhook(res)
 
     # ------------------------------------------------------------------- loop
 

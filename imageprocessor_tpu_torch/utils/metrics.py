@@ -24,6 +24,10 @@ class Metrics:
         self._counters: dict[str, float] = defaultdict(float)
         self._samples: dict[str, list[float]] = defaultdict(list)
         self._counts: dict[str, int] = defaultdict(int)
+        # the running sum of every value observed, beside the reservoir:
+        # a per-item time over a period is sum / count, which no
+        # percentile gives
+        self._sums: dict[str, float] = defaultdict(float)
 
     def inc(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -32,6 +36,7 @@ class Metrics:
     def observe(self, name: str, value: float) -> None:
         with self._lock:
             self._counts[name] += 1
+            self._sums[name] += value
             samples = self._samples[name]
             if len(samples) < self._RESERVOIR:
                 samples.append(value)
@@ -48,6 +53,7 @@ class Metrics:
         with self._lock:
             counters = dict(self._counters)
             counts = dict(self._counts)
+            sums = dict(self._sums)
             sampled = {name: list(s) for name, s in self._samples.items()
                        if s}
         out: dict = {"counters": counters, "timings": {}}
@@ -60,6 +66,7 @@ class Metrics:
                 "p90": s[min(int(n * 0.9), n - 1)],
                 "p99": s[min(int(n * 0.99), n - 1)],
                 "max": s[-1],
+                "sum": sums[name],
             }
         return out
 
@@ -93,6 +100,7 @@ class Metrics:
             self._counters.clear()
             self._samples.clear()
             self._counts.clear()
+            self._sums.clear()
 
 
 METRICS = Metrics()

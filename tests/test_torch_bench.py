@@ -115,7 +115,7 @@ def test_main_smoke_prints_the_documented_keys(on_cpu, capsys):
     assert out["value"] == out["device_splice_step_images_per_sec"]
     assert out["end_to_end_path"] == "device_jpeg_splice"
     assert (out["batch"], out["bucket"], out["layout"]) == (2, [512, 640], "chw")
-    assert out["engine_stages_ms"]["engine_device_ms"] > 0
+    assert out["engine_stages_ms"]["span_device_ms"] > 0
 
 
 def test_main_latency_prints_both_workers(on_cpu, capsys):

@@ -532,8 +532,8 @@ def test_transform_plans_match_reference(engines, monkeypatch, name, splice_on):
 def test_coefficient_plans_skip_the_device(engines, monkeypatch, name):
     """A JPEG -> JPEG plan of coefficient-domain ops and a watermark has
     the "splice" layout: no pixels are decoded, nothing is uploaded and
-    the device stage records 0 ms. Both renditions are the reference's
-    bytes."""
+    the device stage packs, copies and launches nothing. Both renditions
+    are the reference's bytes."""
     from imageprocessor_tpu_torch.utils.metrics import METRICS
     (ref, _), (port, _) = engines
     ops = [TRANSFORMS[name], WATERMARK]
@@ -547,7 +547,9 @@ def test_coefficient_plans_skip_the_device(engines, monkeypatch, name):
     METRICS.reset()
     b = port.process_tasks([(to_port(task), BLOBS[0])])[0]
     assert calls == []
-    assert METRICS.snapshot()["timings"]["engine_device_ms"]["max"] == 0.0
+    timings = METRICS.snapshot()["timings"]
+    assert timings["span_device_ms"]["count"] == 1
+    assert not {"span_pack_ms", "span_h2d_ms", "span_launch_ms", "span_d2h_ms"} & set(timings)
     assert _counter("engine_coeftx_images") == 1
     assert _counter("engine_splice_images") == 1
     a = ref.process_tasks([(task, BLOBS[0])])[0]

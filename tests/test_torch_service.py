@@ -301,7 +301,7 @@ def test_metrics_in_both_formats(server):
         m = r.json()
         assert m["counters"]["engine_device_images"] >= 1
         assert m["counters"]["worker_completed"] >= 1
-        assert "engine_device_ms" in m["timings"]
+        assert "span_device_ms" in m["timings"]
         r = c.get(f"{server}/api/metrics", params={"format": "prometheus"})
         assert r.status_code == 200
         assert r.headers["content-type"].startswith("text/plain")

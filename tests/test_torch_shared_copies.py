@@ -9,9 +9,9 @@ the reference-topology backends (the Kafka wire codec, client and
 server; the Postgres wire client and store; the S3 store).
 Every top-level import, function, class and constant of a copy must have
 the same source as the original's once the package name is swapped back
-(a class is held method by method: ``Worker.run_once``), and a copy may
-leave out only the names listed in OMITTED. The service's static files
-are byte-equal.
+(a class is held method by method: ``Worker.run_once``); a copy may
+leave out only the names listed in OMITTED and add only those in ADDED.
+The service's static files are byte-equal.
 
 The copies that differ do so in named places:
 
@@ -40,17 +40,30 @@ The copies that differ do so in named places:
 * config.py: ``apply_device_platform`` returns the ``torch.device`` that
   DEVICE_PLATFORM names (empty means the card) where the original forces
   a JAX platform;
+* utils/metrics.py: ``Metrics`` keeps a running sum of every timing
+  beside its reservoir, and ``snapshot`` reports it as ``sum``
+  (``__init__``, ``observe``, ``snapshot``, ``reset``): a time per item
+  over a period is sum / count, which no percentile gives;
 * service/worker.py: ``Worker.__init__`` resolves DEVICE_PLATFORM to a
   ``torch.device`` before any backend opens, refuses by name
   DEVICE_SPACE_AXIS above 1 and a DEVICE_DATA_AXIS above the local cards
   (or beside one named card), builds a TorchProcessingEngine with the
   data axis and has no compile cache (so the imports of the engine and of
-  config differ too); every other method is the original's;
+  config differ too); ``run_once``, ``_parse_and_fetch`` and
+  ``_finish_message`` put the broker's poll, the blob's fetch and the
+  metadata writes with the ack and the results produce in ``poll``,
+  ``fetch`` and ``record`` spans (utils/tracing.py, imported in ADDED);
+  every other method is the original's;
 * service/pipelined.py: ``run`` starts one device-stage thread per
   engine replica (the engine runs each group whole on one replica, where
   the original's splits every group across its chips), and
   ``_device_stage`` passes the stop sentinel on to the next of them, the
-  last one stopping the finish stage;
+  last one stopping the finish stage; the engine's own ``decode``,
+  ``device`` and ``encode`` spans replace the wrappers that
+  ``_handle_message``, ``_device_stage`` and ``_finish_stage`` put
+  around its calls, ``_handle_message`` passes the upload's id to the
+  decode, and ``_decode_stage`` puts the broker's poll in a ``poll``
+  span;
 * service/__main__.py: ``main`` resolves the device through the config
   hook, and its ``worker`` mode runs the worker on a thread of its own
   while the main thread joins it: the original runs it on the main
@@ -91,16 +104,25 @@ COPIES = ["domain/__init__.py", "domain/image.py", "domain/task.py", "errors.py"
           "storage/postgres_meta.py", "storage/s3.py"]
 # names of the original a copy leaves out
 OMITTED: dict[str, set[str]] = {}
+# names a copy has that the original has not
+ADDED = {"service/worker.py": {"from imageprocessor_tpu.utils.tracing"}}
 DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
                                  "decode_image", "encode_image"},
            "runtime/coeftx.py": {"_rot_native"},
            "broker/kafkawire.py": {"crc32c"},
            "config.py": {"apply_device_platform"},
+           "utils/metrics.py": {"Metrics.__init__", "Metrics.observe",
+                                "Metrics.snapshot", "Metrics.reset"},
            "service/worker.py": {"from imageprocessor_tpu.config",
                                  "from imageprocessor_tpu.runtime.engine",
-                                 "Worker.__init__"},
+                                 "Worker.__init__", "Worker.run_once",
+                                 "Worker._parse_and_fetch",
+                                 "Worker._finish_message"},
            "service/pipelined.py": {"PipelinedWorker._device_stage",
-                                    "PipelinedWorker.run"},
+                                    "PipelinedWorker.run",
+                                    "PipelinedWorker._decode_stage",
+                                    "PipelinedWorker._handle_message",
+                                    "PipelinedWorker._finish_stage"},
            "service/__main__.py": {"main"}}
 STATIC = ["index.html", "app.js", "style.css"]
 # copies whose top-level imports are their own (the host library in place
@@ -149,7 +171,10 @@ def test_copy_has_the_originals_source(rel):
     ref = _top_level(REF / rel, rename=False)
     assert port, rel
     assert set(ref) - set(port) == OMITTED.get(rel, set())
+    assert set(port) - set(ref) == ADDED.get(rel, set())
     for name, src in port.items():
+        if name in ADDED.get(rel, ()):
+            continue
         assert name in ref, f"{rel}: {name} is not in the original"
         if name not in DIFFERS.get(rel, ()):
             assert src == ref[name], f"{rel}: {name} differs from the original"

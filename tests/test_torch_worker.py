@@ -630,7 +630,7 @@ def test_deadline_bounds_batcher_wait(tmp_path):
     wait = snap["batcher_wait_ms"]["max"]
     assert deadline_ms * 0.9 <= wait <= deadline_ms + 1500.0, wait
     for key in ("queue_wait_ms", "span_decode_ms", "span_device_ms",
-                "span_encode_ms", "engine_device_ms"):
+                "span_encode_ms", "span_pack_ms"):
         assert key in snap, sorted(snap)
 
 
