@@ -204,7 +204,18 @@ Phases (any failure exits non-zero):
    group's device stage it prints each card's peak allocation and
    span_device_ms at both settings. With two cards or more the strips
    also run over cuda:0 and cuda:1 (byte-identical, every kernel launched
-   on both cards); with one, a line says that part did not run.
+   on both cards); with one, a line says that part did not run;
+21. staging — one group of 32 3000 x 4000 q85 uploads (eight seeded
+   photos, four times each) with the default plan through the engine's
+   device stage by both paths, in turns: the staged path (each upload
+   scanned into a reused page-locked slab, its planes copied straight into
+   the card's canvases) and the packed path (Group.pack's host canvases,
+   then pageable copies), each on fresh scans after a warm call. Kernel
+   B1's operands and the group's outputs must be byte-identical, every
+   plane byte of the staged path must come from a slab
+   (engine_h2d_pinned_bytes, no engine_stage_pool_misses). It prints each
+   path's pack time, its H2D rate (engine_h2d_bytes over the h2d spans),
+   its device span and its peak card memory above the allocation before.
 
 B2's and B4's bounds are counted twice: by the bytes their taps touch,
 and by the 32-byte sectors those bytes lie in (the card's memory moves
@@ -1907,6 +1918,123 @@ def phase_space(card: str, blobs: list) -> dict:
     return launched
 
 
+def phase_staging(card: str) -> dict:
+    """Phase 21: one 32 x 12 MP group through the staged and the packed
+    device stage, in turns, on fresh scans each time: B1's operands and
+    the outputs byte-identical, and each path's pack time, H2D rate,
+    device span and peak card memory. Returns the launches of the runs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from imageprocessor_tpu_torch.domain import OperationParams, OperationType
+    from imageprocessor_tpu_torch.models.plan import normalize_operations
+    from imageprocessor_tpu_torch.runtime import engine as engine_mod
+    from imageprocessor_tpu_torch.runtime.batcher import BatchItem, group_items
+    from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
+    from imageprocessor_tpu_torch.utils.metrics import METRICS
+    from imageprocessor_tpu_torch.utils.tracing import span
+
+    n = 32
+    counters = kernel_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    P, T = OperationParams, OperationType
+    plan = normalize_operations([
+        P(T.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
+        P(T.RESIZE, {"width": 1024, "height": 768, "keep_aspect": True})])
+    sources = [jpeg(photo(3000, 4000, 2100 + s), True) for s in range(8)]
+    blobs = [sources[k % len(sources)] for k in range(n)]
+
+    class Store:
+        def save_processed(self, path, data, mime=None):
+            pass
+
+    engine = TorchProcessingEngine(Store(), device="cuda:0", batch_size=n)
+    operands = []
+    inner = engine_mod.decode_coefs
+
+    def decode_coefs(*args):
+        operands.append([a.clone() for a in args[:5]])
+        return inner(*args)
+
+    def packed(group, b, device):
+        """The packed path's layout: Group.pack's host canvases."""
+        with span("pack", images=len(group.items)):
+            return group.pack(pad_batch_to=b)
+
+    def scanned():
+        with ThreadPoolExecutor(3) as ex:
+            decoded = list(ex.map(
+                lambda blob: engine.decode_for_plan_ex(blob, plan, "jpeg"), blobs))
+        [group] = group_items([
+            BatchItem(item_id=str(k), image=arr, plan_key=plan.group_key(),
+                      payload=(k, None, "jpeg", plan), layout=layout,
+                      valid_hw=hw, splice=sctx)
+            for k, (arr, _f, layout, hw, sctx) in enumerate(decoded)], max_batch=n)
+        return group
+
+    def run(path):
+        """A warm call, whose B1 operands are kept, then a measured one,
+        each on fresh scans."""
+        if path == "packed":
+            engine._stage_coefs = packed
+        try:
+            engine_mod.decode_coefs = decode_coefs
+            try:
+                engine.device_group(scanned())
+            finally:
+                engine_mod.decode_coefs = inner
+            group = scanned()
+            torch.cuda.synchronize(0)
+            base = torch.cuda.memory_allocated(0)
+            torch.cuda.reset_peak_memory_stats(0)
+            METRICS.reset()
+            out = engine.device_group(group)
+            torch.cuda.synchronize(0)
+            peak = torch.cuda.max_memory_allocated(0) - base
+        finally:
+            engine.__dict__.pop("_stage_coefs", None)
+        snap = METRICS.snapshot()
+        t, c = snap["timings"], snap["counters"]
+        return out, {
+            "pack_ms": t["span_pack_ms"]["sum"],
+            "h2d_gb_s": c["engine_h2d_bytes"] / t["span_h2d_ms"]["sum"] / 1e6,
+            "h2d_bytes": c["engine_h2d_bytes"],
+            "pinned_share": c.get("engine_h2d_pinned_bytes", 0) / c["engine_h2d_bytes"],
+            "misses": c.get("engine_stage_pool_misses", 0),
+            "device_ms": t["span_device_ms"]["sum"], "peak_mb": peak / 1e6}
+
+    try:
+        outs, stats = {}, {"staged": [], "packed": []}
+        for path in ("staged", "packed", "packed", "staged"):
+            outs[path], st = run(path)
+            stats[path].append(st)
+            log(f"[21 staging] {card}: {n} x 3000x4000 q85, {path}: pack "
+                f"{st['pack_ms']:.3f} ms ({st['pack_ms'] / n:.4f} ms/image), h2d "
+                f"{st['h2d_gb_s']:.2f} GB/s ({st['h2d_bytes']} B, from slabs "
+                f"{st['pinned_share']:.4f}), misses {st['misses']}, device span "
+                f"{st['device_ms']:.1f} ms, peak {st['peak_mb']:.1f} MB above the "
+                "allocation before")
+    finally:
+        engine.close()
+    # one B1 launch kept a run, staged first: all four on the same bytes
+    if len(operands) != 4 or not all(
+            all(torch.equal(x, y) for x, y in zip(operands[0], other))
+            for other in operands[1:]):
+        fail("phase 21: B1's operands differ between the staged and packed paths")
+    (plan_s, out_s, hws_s, _), (plan_p, out_p, hws_p, _) = outs["staged"], outs["packed"]
+    if not (len(out_s) == len(out_p) and all(
+            np.array_equal(a, b) for a, b in zip(out_s, out_p))
+            and all(np.array_equal(hws_s[k], hws_p[k]) for k in hws_p)):
+        fail("phase 21: the staged path's outputs differ from the packed path's")
+    for st in stats["staged"]:
+        if st["pinned_share"] < 0.95 or st["misses"]:
+            fail(f"phase 21: staged copies from slabs {st['pinned_share']:.4f}, "
+                 f"misses {st['misses']}")
+    log(f"[21 staging] {card}: B1's operands and the outputs byte-identical over "
+        "both paths")
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
 def main_sources() -> list:
     """Phase 5's originals as (pixels, 4:2:0?): eight 12 MP photos, 1920 x
     1080 and 640 x 480, all 4:2:0, and 1600 x 1200 at 4:4:4."""
@@ -1918,11 +2046,12 @@ def main_sources() -> list:
 
 def main(argv: list[str] | None = None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    args.add_argument("--phase", choices=["19", "20"],
+    args.add_argument("--phase", choices=["19", "20", "21"],
                       help="run only phases 1, 2 and this one (19: routes "
-                           "and replicas, 20: the space axis; on a host with "
-                           "any number of cards); prints its launches and "
-                           "the card line, not the kernels line")
+                           "and replicas, 20: the space axis, 21: the "
+                           "staging; on a host with any number of cards); "
+                           "prints its launches and the card line, not the "
+                           "kernels line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1994,9 +2123,12 @@ def main(argv: list[str] | None = None) -> int:
     log(f"[2 build] kernels (one nvcc sm_90a per csrc/*.cu, in parallel) "
         f"{t1 - t0:.2f} s, host JPEG + GIF library (g++) {t2 - t1:.2f} s")
     if args.phase:
-        blobs = [jpeg(img, sub) for img, sub in main_sources()]
-        launched = (phase_routes(card, oracle, blobs) if args.phase == "19"
-                    else phase_space(card, blobs))
+        if args.phase == "21":
+            launched = phase_staging(card)
+        else:
+            blobs = [jpeg(img, sub) for img, sub in main_sources()]
+            launched = (phase_routes(card, oracle, blobs) if args.phase == "19"
+                        else phase_space(card, blobs))
         print(json.dumps({"phase": args.phase, "launches": launched}))
         print(card)
         return 0
@@ -3003,6 +3135,9 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 20. the space axis
     space_launches = phase_space(card, blobs)
 
+    # ---- 21. the staged device stage against the packed one
+    stage_launches = phase_staging(card)
+
     def row(name, key, source, replaces, phase, launched, err, ms, plain, b):
         # library_ms: no single PyTorch call computes any of the four:
         # torch has no 8x8 DCT (B1, B3), and interpolate takes one output
@@ -3014,14 +3149,15 @@ def main(argv: list[str] | None = None) -> int:
                 "launches": (launched + tx_launches[key] + single_launches[key]
                              + svc_launches[key] + bench_launches[key]
                              + topo_launches[key] + route_launches[key]
-                             + space_launches[key]),
+                             + space_launches[key] + stage_launches[key]),
                 "launches_by_phase": {phase: launched, "11": tx_launches[key],
                                       "12": single_launches[key],
                                       "15": svc_launches[key],
                                       "17": bench_launches[key],
                                       "18": topo_launches[key],
                                       "19": route_launches[key],
-                                      "20": space_launches[key]},
+                                      "20": space_launches[key],
+                                      "21": stage_launches[key]},
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
                 "roofline_share": b["ms"] / ms,

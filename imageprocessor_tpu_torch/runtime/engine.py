@@ -58,12 +58,23 @@ fallback of the coefficient routes. Failures are classified like the
 reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
 device; nacked for redelivery).
 
+A coefficient group on one card is staged without a host bucket canvas:
+each upload is scanned into a reused slab (runtime/staging.py; page-locked
+on a card) and its planes are copied from there straight into their
+slots of the group's canvases, zeroed on the card. Every other group is
+packed into host canvases (runtime/batcher.py ``Group.pack``) and copied.
+
 The stages are spans (utils/tracing.py): ``decode`` and ``encode`` per
 upload, ``save`` per stored rendition inside ``encode``; ``device`` per
-group, with ``pack``, one ``h2d`` per host-to-device copy, ``launch``
-and one ``d2h`` per device-to-host copy (which first waits for the
-kernels) inside it. ``engine_h2d_bytes`` and ``engine_d2h_bytes`` count
-the bytes copied, ``engine_pack_images`` the images packed.
+group, with ``pack`` (the group's layout: its canvases and tables),
+``h2d`` (one per host-to-device copy; for a staged group one for all its
+copies, ended once the card has them), ``launch`` and one ``d2h`` per
+device-to-host copy (which first waits for the kernels) inside it.
+``engine_h2d_bytes`` and ``engine_d2h_bytes`` count the bytes copied,
+``engine_h2d_pinned_bytes`` those copied from the slabs,
+``engine_pack_images`` the images laid out and
+``engine_stage_pool_misses`` the coefficient uploads scanned outside the
+slabs because every slab was out.
 """
 
 from __future__ import annotations
@@ -138,6 +149,7 @@ from imageprocessor_tpu_torch.runtime.codecs import (
     negotiate_format,
 )
 from imageprocessor_tpu_torch.runtime.paths import generate_path
+from imageprocessor_tpu_torch.runtime.staging import SlabPool
 from imageprocessor_tpu_torch.utils.metrics import METRICS
 from imageprocessor_tpu_torch.utils.tracing import span
 
@@ -175,6 +187,25 @@ def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(a).to(device)
     METRICS.inc("engine_h2d_bytes", a.nbytes)
     return t
+
+
+def _b1_mode(shapes, size, sampling) -> tuple[int, int] | None:
+    """(fh, fw) of scanned planes kernel B1 decodes (three components, the
+    chroma 1x1 and the luma at most 2x2, the planes inside their bucket's
+    canvas); None for planes that take the pixel decode."""
+    if len(shapes) != 3:
+        return None
+    (hy, vy), (hc, vc), (hr, vr) = (tuple(s) for s in sampling)
+    fh, fw = vy, hy
+    if not ((hc, vc) == (hr, vr) == (1, 1) and fh in (1, 2) and fw in (1, 2)):
+        return None
+    (yh, yw), c1, c2 = (tuple(s) for s in shapes)
+    w, h = size
+    ch, cw = coef_canvas(bucket_for(h, w), fh, fw)
+    if (yh <= ch and yw <= cw and c1 == c2
+            and c1[0] * fh == yh and c1[1] * fw == yw):
+        return fh, fw
+    return None
 
 
 def _d2h(copy) -> np.ndarray:
@@ -267,6 +298,10 @@ class TorchProcessingEngine:
         # group_items must never emit a group larger than quantize_batch's
         # cap, or Group.pack would index past its canvas
         self.batch_size = max(1, min(batch_size, MAX_BATCH))
+        # staging slabs for the coefficient scans: one group being scanned
+        # and one in the device stage
+        self._slabs = SlabPool(2 * self.batch_size, pinned=any(
+            d.type == "cuda" for r in self.replicas for d in r))
         self.jpeg_quality = jpeg_quality
         # IMAGEPROCESSOR_DEVICE_JPEG, read once as the reference reads it:
         # 0 keeps JPEG decode and encode on the host, 1 puts them on the
@@ -549,25 +584,38 @@ class TorchProcessingEngine:
         if is_jpeg and self.device_jpeg:
             try:
                 if scanned is None:
-                    scanned = hostcodec.scan_jpeg_coefficients(data)
-                planes, qt, (w, h), samp = scanned
+                    scanned = self._scan_staged(data)
             except hostcodec.HostCodecError:
-                planes = ()   # exotic stream: pixel decode below
-            if len(planes) == 3:
-                (hy, vy), (hc, vc), (hr, vr) = (tuple(s) for s in samp)
-                fh, fw = vy, hy
-                if (hc, vc) == (hr, vr) == (1, 1) and fh in (1, 2) \
-                        and fw in (1, 2):
-                    ch, cw = coef_canvas(bucket_for(h, w), fh, fw)
-                    if (planes[0].shape[0] <= ch and planes[0].shape[1] <= cw
-                            and planes[1].shape == planes[2].shape
-                            and planes[1].shape[0] * fh == planes[0].shape[0]
-                            and planes[1].shape[1] * fw == planes[0].shape[1]):
-                        return ((planes[0], planes[1], planes[2],
-                                 np.asarray(qt, dtype=np.float32)), "jpeg",
-                                coef_layout(fh, fw), (h, w), sctx)
+                scanned = None   # exotic stream: pixel decode below
+            mode = scanned and _b1_mode([p.shape for p in scanned[0]],
+                                        *scanned[2:])
+            if mode:
+                planes, qt, (w, h), _samp = scanned
+                return ((planes[0], planes[1], planes[2],
+                         np.asarray(qt, dtype=np.float32)), "jpeg",
+                        coef_layout(*mode), (h, w), sctx)
         arr, detected = decode_image(data)
         return arr, detected, "hwc", None, sctx
+
+    def _scan_staged(self, data: bytes):
+        """``hostcodec.scan_jpeg_coefficients``, the planes of a stream
+        kernel B1 decodes scanned into a slab of the staging pool (outside
+        it, counted in ``engine_stage_pool_misses``, when every slab is
+        out)."""
+        shapes, size, sampling = hostcodec.scan_jpeg_layout(data)
+        planes = None
+        if _b1_mode(shapes, size, sampling):
+            planes = self._slabs.take(shapes)
+            if planes is None:
+                METRICS.inc("engine_stage_pool_misses", 1)
+        if planes is None:
+            planes = [np.zeros(s, dtype=np.int16) for s in shapes]
+        try:
+            qt = hostcodec.scan_jpeg_coefficients_into(data, planes)
+        except hostcodec.HostCodecError:
+            self._slabs.give(planes[0])
+            raise
+        return planes, qt, size, sampling
 
     # ----------------------------------------------------------- batched path
 
@@ -646,15 +694,64 @@ class TorchProcessingEngine:
 
     def _upload(self, imgs, group, device: torch.device) -> torch.Tensor:
         """Put packed rows of a group on ``device`` as a planar (B, 3, Hb,
-        Wb) u8 bucket: kernel B1 for coefficient rows, a permute for HWC."""
+        Wb) u8 bucket: kernel B1 for coefficient rows (operands already on
+        the device, as ``_stage_coefs`` leaves them, are not copied), a
+        permute for HWC."""
         if group.layout.startswith("coef"):
             fh, fw = coef_factors(group.layout)
-            yc, cbc, crc, qt, cv = (_h2d(a, device) for a in imgs)
+            yc, cbc, crc, qt, cv = (a if isinstance(a, torch.Tensor)
+                                    else _h2d(a, device) for a in imgs)
             with span("launch"):
                 return decode_coefs(yc, cbc, crc, qt, cv, fh, fw, group.bucket)
         x = _h2d(imgs, device)
         with span("launch"):
             return x.permute(0, 3, 1, 2).contiguous()
+
+    def _stage_coefs(self, group, b: int, device: torch.device):
+        """A coefficient group's operands of kernel B1 on ``device`` with no
+        host canvas: the (b, ch, cw) and two (b, ch/fh, cw/fw) int16
+        canvases zeroed on the card, each upload's three planes copied into
+        its slot [i, :ph, :pw] without blocking (from its slab, or from
+        wherever it was scanned), and the tables (pad rows' qt[:, :, 0, 0]
+        = 1) and the chroma extents as Group.pack builds them. B1 reads
+        what it reads after Group.pack and ``_h2d``, byte for byte. ->
+        ((yc, cbc, crc, qt, cv) on the device, src_hw). The ``h2d`` span
+        holds every copy and ends once the card has them."""
+        fh, fw = coef_factors(group.layout)
+        ch, cw = coef_canvas(group.bucket, fh, fw)
+        n = len(group.items)
+        with span("pack", images=n):
+            canvases = [torch.zeros(shape, dtype=torch.int16, device=device)
+                        for shape in ((b, ch, cw), (b, ch // fh, cw // fw),
+                                      (b, ch // fh, cw // fw))]
+            qt = np.zeros((b, 3, 8, 8), dtype=np.float32)
+            qt[:, :, 0, 0] = 1.0   # benign tables for pad rows
+            cv = np.ones((b, 2), dtype=np.int32)   # chroma plane extents
+            src_hw = np.zeros((b, 2), dtype=np.int32)
+            for i, it in enumerate(group.items):
+                qt[i] = it.image[3]
+                cv[i] = it.image[1].shape
+                src_hw[i] = it.hw
+            src_hw[n:] = src_hw[n - 1]
+        nbytes = pinned = 0
+        with span("h2d") as attrs:
+            for i, it in enumerate(group.items):
+                planes = it.image[:3]
+                for canvas, p in zip(canvases, planes):
+                    canvas[i, :p.shape[0], :p.shape[1]].copy_(
+                        torch.from_numpy(p), non_blocking=True)
+                size = sum(p.nbytes for p in planes)
+                nbytes += size
+                if self._slabs.owns(planes[0]):
+                    pinned += size
+            tables = [torch.from_numpy(a).to(device) for a in (qt, cv)]
+            nbytes += qt.nbytes + cv.nbytes
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            attrs["bytes"] = nbytes
+        METRICS.inc("engine_h2d_bytes", nbytes)
+        METRICS.inc("engine_h2d_pinned_bytes", pinned)
+        return (*canvases, *tables), src_hw
 
     def _upload_strips(self, imgs, src_hw, group, cards) -> Strips:
         """Put packed rows of a group on a replica's cards as column strips
@@ -694,21 +791,27 @@ class TorchProcessingEngine:
         next free one, on its cards' streams; callers on several threads
         keep every replica busy. A ``device`` span covers the call, the
         wait for a replica included; inside it ``pack``, ``h2d``,
-        ``launch`` and ``d2h`` spans."""
-        with span("device", images=len(group.items), layout=group.layout,
-                  hw=[tuple(int(v) for v in it.hw) for it in group.items]):
-            if self._free is None:
-                self.replica_groups[0] += 1
-                return self._device_group(group, self.replicas[0])
-            k = self._free.get()
-            try:
-                self.replica_groups[k] += 1
-                with contextlib.ExitStack() as streams:
-                    for stream in self._streams[k]:
-                        streams.enter_context(torch.cuda.stream(stream))
-                    return self._device_group(group, self.replicas[k])
-            finally:
-                self._free.put(k)
+        ``launch`` and ``d2h`` spans. The group's staging slabs go back to
+        the pool when it returns: the copies from them are complete."""
+        try:
+            with span("device", images=len(group.items), layout=group.layout,
+                      hw=[tuple(int(v) for v in it.hw) for it in group.items]):
+                if self._free is None:
+                    self.replica_groups[0] += 1
+                    return self._device_group(group, self.replicas[0])
+                k = self._free.get()
+                try:
+                    self.replica_groups[k] += 1
+                    with contextlib.ExitStack() as streams:
+                        for stream in self._streams[k]:
+                            streams.enter_context(torch.cuda.stream(stream))
+                        return self._device_group(group, self.replicas[k])
+                finally:
+                    self._free.put(k)
+        finally:
+            if group.layout.startswith("coef"):
+                for it in group.items:
+                    self._slabs.give(it.image[0])
 
     def _device_group(self, group, cards: tuple[torch.device, ...]):
         plan: OperationPlan = group.items[0].payload[3]
@@ -790,12 +893,16 @@ class TorchProcessingEngine:
 
         crops = {oi: (_q64(int(hw[:n_real, 0].max())), _q64(int(hw[:n_real, 1].max())))
                  for oi, hw in out_hws.items()}
-        with span("pack", images=n_real):
-            imgs, src_hw = group.pack(pad_batch_to=b)
+        if len(cards) == 1 and group.layout.startswith("coef"):
+            imgs, src_hw = self._stage_coefs(group, b, cards[0])
+        else:
+            with span("pack", images=n_real):
+                imgs, src_hw = group.pack(pad_batch_to=b)
         METRICS.inc("engine_pack_images", n_real)
         run_hws = {run[oi]: v for oi, v in out_hws.items() if oi in run}
         if len(cards) == 1:
             x = self._upload(imgs, group, cards[0])
+            del imgs   # a staged group's canvases: free on the card before the step
             with span("launch"):
                 outs = step_chw(x, src_hw, run_hws, specs)
         else:

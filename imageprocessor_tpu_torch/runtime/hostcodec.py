@@ -10,7 +10,9 @@ with ctypes. The functions below are nativecodec's bindings of the same
 entry points, raising :class:`HostCodecError` where nativecodec raises
 NativeCodecError:
 
-* ``scan_jpeg_coefficients`` fills the int16 canvases kernel B1 decodes;
+* ``scan_jpeg_coefficients`` fills the int16 canvases kernel B1 decodes
+  (``scan_jpeg_layout`` and ``scan_jpeg_coefficients_into``: the same
+  scan into planes the caller holds, the engine's reused staging slabs);
 * ``emit_jpeg_from_coefficients`` entropy-codes the canvases kernel B3
   writes;
 * ``scan_jpeg_for_transcode``/``emit_jpeg_transcode`` are the watermark
@@ -133,6 +135,7 @@ def _ptr(a: np.ndarray | None):
 
 
 def _scan_dims(lib, data: bytes):
+    """(plane shapes, (img_w, img_h), sampling) from the headers alone."""
     ncomp, iw, ih = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     cbw, cbh, hs, vs = ((ctypes.c_int * 4)() for _ in range(4))
     rc = lib.ip_jpeg_scan_dims(data, len(data), ctypes.byref(ncomp),
@@ -143,10 +146,20 @@ def _scan_dims(lib, data: bytes):
     if iw.value <= 0 or ih.value <= 0 or iw.value * ih.value > _MAX_COEF_PIXELS:
         raise HostCodecError(f"frame {iw.value}x{ih.value} out of range")
     n = ncomp.value
-    planes = [np.zeros((cbh[c] * 8, cbw[c] * 8), dtype=np.int16)
-              for c in range(n)]
+    shapes = [(cbh[c] * 8, cbw[c] * 8) for c in range(n)]
     sampling = [(hs[c], vs[c]) for c in range(n)]
-    return planes, (iw.value, ih.value), sampling
+    return shapes, (iw.value, ih.value), sampling
+
+
+def _zeros(shapes) -> list[np.ndarray]:
+    return [np.zeros(s, dtype=np.int16) for s in shapes]
+
+
+def scan_jpeg_layout(data: bytes):
+    """(plane shapes, (img_w, img_h), sampling) of the planes
+    ``scan_jpeg_coefficients`` would return, from the headers alone.
+    Raises HostCodecError for streams the scanner refuses."""
+    return _scan_dims(library(), data)
 
 
 def scan_jpeg_coefficients(data: bytes):
@@ -157,10 +170,24 @@ def scan_jpeg_coefficients(data: bytes):
     block (by, bx) at [by*8+u, bx*8+v]), MCU-aligned; qtabs: (n, 8, 8)
     float32; sampling: per component (h, v) factors. Raises
     HostCodecError for streams the scanner refuses."""
+    shapes, size, sampling = scan_jpeg_layout(data)
+    planes = _zeros(shapes)
+    return planes, scan_jpeg_coefficients_into(data, planes), size, sampling
+
+
+def scan_jpeg_coefficients_into(data: bytes, planes) -> np.ndarray:
+    """``scan_jpeg_coefficients`` into the caller's planes: one C-contiguous
+    int16 array per component, of the shapes ``scan_jpeg_layout`` gives
+    and all zero (the scanner writes only the non-zero coefficients).
+    Returns qtabs, (n, 8, 8) float32. Raises HostCodecError for streams
+    the scanner refuses, ValueError for planes that do not fit."""
     lib = library()
-    planes, size, sampling = _scan_dims(lib, data)
+    shapes, _size, _sampling = _scan_dims(lib, data)
+    if [tuple(p.shape) for p in planes] != shapes or not all(
+            p.dtype == np.int16 and p.flags.c_contiguous for p in planes):
+        raise ValueError(f"planes must be C-contiguous int16 of shapes {shapes}")
     n = len(planes)
-    pv = planes + [np.zeros((8, 8), dtype=np.int16)] * (3 - n)
+    pv = list(planes) + _zeros([(8, 8)] * (3 - n))
     rc = lib.ip_jpeg_scan_coefs(data, len(data), *map(_ptr, pv[:3]))
     if rc != 0:
         raise HostCodecError(f"scan coefs failed (rc={rc})")
@@ -168,7 +195,7 @@ def scan_jpeg_coefficients(data: bytes):
     rc = lib.ip_jpeg_scan_qtabs(data, len(data), _ptr(qt))
     if rc != 0:
         raise HostCodecError(f"scan qtabs failed (rc={rc})")
-    return planes, qt[:n].reshape(n, 8, 8).astype(np.float32), size, sampling
+    return qt[:n].reshape(n, 8, 8).astype(np.float32)
 
 
 def emit_jpeg_from_coefficients(planes, qtabs, img_w: int, img_h: int,
@@ -272,7 +299,8 @@ def scan_jpeg_for_transcode(data: bytes) -> JpegSpliceContext:
     Raises HostCodecError for anything the splice emitter cannot
     reproduce (progressive, truncated streams)."""
     lib = library()
-    planes, (iw, ih), sampling = _scan_dims(lib, data)
+    shapes, (iw, ih), sampling = _scan_dims(lib, data)
+    planes = _zeros(shapes)
     n = len(planes)
     if n not in (1, 3):
         raise HostCodecError(f"unsupported component count {n}")

@@ -129,7 +129,7 @@ def check_tree(recs, stack, lo, hi):
         kids = by_name(r for r in recs if r.parent == d.id)
         assert set(kids) == DEVICE_CHILDREN
         assert [r.attrs["images"] for r in kids["pack"]] == [d.attrs["images"]]
-        assert len(kids["h2d"]) == 5                  # Y, Cb, Cr, tables, valid dims
+        assert len(kids["h2d"]) == 1                  # the staged planes, tables, valid dims
         assert len(kids["d2h"]) == len(OPS)           # one output per operation
         assert all(r.attrs["bytes"] > 0 for r in kids["h2d"] + kids["d2h"])
     # two renditions saved per upload, inside its encode
