@@ -5,7 +5,7 @@
 
 One process, one run of the cell per seed (each with its own set-up), on
 the card. Each run is the benchmark's own run with one change: once the
-worker is built, its engine stores every JPEG it encodes at ``--quality``
+members are built, each one's engine stores every JPEG it encodes at ``--quality``
 (the engine's ``jpeg_quality``) in place of the configuration's 85, the
 lower-precision step (coarser quantization, fewer coefficients to emit)
 that would tempt a later change. Each seed prints its checks and
@@ -25,10 +25,11 @@ from perfbench import harness
 
 
 def lower_quality(quality: int):
-    """An ``on_worker`` hook: the worker's engine encodes at ``quality``."""
+    """An ``on_worker`` hook: every member's engine encodes at ``quality``."""
 
     def hook(run):
-        run.worker.engine.jpeg_quality = int(quality)
+        for w in run.workers:
+            w.engine.jpeg_quality = int(quality)
 
     return hook
 

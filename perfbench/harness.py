@@ -1,22 +1,29 @@
 """One run of one cell: set-up, the measured window, the checks.
 
-The program under test is ``imageprocessor_tpu_torch``: its worker
-(the configuration's class) with the broker, metadata store and object
-store the configuration's environment names, built by the program's own
-factories with their files under ``TMPDIR``. Nothing here imports
-the JAX package or the program's own bench; the program is imported only
-inside :func:`run_cell`, after the caller has looked for the card.
+The program under test is ``imageprocessor_tpu_torch``: its workers
+(the configuration's class, ``members`` of them in one consumer group)
+with the broker, metadata store and object store the configuration's
+environment names, built by the program's own factories with their files
+under ``TMPDIR``, and the servers its ``services`` list run as child
+processes. Nothing here imports the JAX package or the program's own
+bench; the program is imported only inside :func:`run_cell`, after the
+caller has looked for the card.
 
 A run:
 
 1. builds the program's kernel and host-codec libraries (hash-named
    caches under ``build/``: only a checkout's first run compiles);
-2. makes the cell's pools of originals from the seed and saves each once
+2. sets the configuration's keys that the program's ``config.load`` does
+   not read (the engine's switches) in this process's environment, and
+   starts each of its services;
+3. makes the cell's pools of originals from the seed and saves each once
    in the store, as the API would have;
-3. builds the worker and starts it on a thread;
-4. warms the buckets and group sizes the traffic forms, with the
+4. builds the members and starts each on a thread; on a broker that is
+   a server of its own each member has its own client, and the run waits
+   until the group's round has settled with all of them in it;
+5. warms the buckets and group sizes the traffic forms, with the
    traffic file's warm-up bursts;
-5. hands over to the traffic's generator (``generators/<kind>.py``).
+6. hands over to the traffic's generator (``generators/<kind>.py``).
    ``setup_s`` runs from the process's start to the window's start.
 
 After the window: the card's peak memory, then the checks against the
@@ -28,10 +35,15 @@ last, in ``run.py``, once all of that has been imported.
 from __future__ import annotations
 
 import concurrent.futures
+import inspect
 import json
 import math
 import os
+import re
 import shutil
+import signal
+import socket
+import subprocess
 import sys
 import tempfile
 import threading
@@ -54,6 +66,12 @@ PIXEL_CHECKS = ("gap_lsb", "tile_gap_lsb", "outside_band_px")
 BACKEND_PATHS = {"METADATA_SQLITE_PATH": "metadata.db",
                  "BROKER_SQLITE_PATH": "broker.db",
                  "STORAGE_LOCALFS_ROOT": "objects"}
+# brokers that are servers of their own: every member, and the harness,
+# has a client of its own and so its own group membership
+NETWORK_BROKERS = ("kafka",)
+SERVICE_WAIT_S = 120.0   # a service's start until it accepts a connection
+SERVICE_STOP_S = 30.0    # its SIGTERM until it has exited
+GROUP_WAIT_S = 60.0      # the members' start until the group has settled
 
 
 def forbidden_modules(modules=None) -> list[str]:
@@ -80,6 +98,21 @@ def task_operations(flags: list[str]) -> list:
             for op in reference.operations(flags)]
 
 
+def config_keys() -> set[str]:
+    """The environment variables the program's ``config.load`` reads: the
+    quoted upper-case names in its source."""
+    from imageprocessor_tpu_torch import config as ipconfig
+
+    return set(re.findall(r'"([A-Z][A-Z0-9_]*)"', inspect.getsource(ipconfig.load)))
+
+
+def free_port() -> int:
+    """A loopback port that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def tree_bytes(root: str) -> int:
     """Bytes of the files under ``root``: what a run left in its store
     and metadata, all written once (every object path is new)."""
@@ -103,6 +136,7 @@ class Run:
                  t_start, bench):
         self.name, self.cfg, self.traffic = name, cfg, traffic
         self.seed, self.seconds, self.trace = seed, seconds, trace
+        self.services, self.members = spec.deployment(cfg)
         self.device = torch.device(device)
         self.t_start = t_start
         self.bench = bench
@@ -128,8 +162,13 @@ class Run:
         self.power_limit = ""
         self._prof = None
         self._tmp = ""
+        self.broker = None
+        self.workers: list = []              # the members; worker is the first
         self.worker = None
-        self._threads: list[threading.Thread] = []
+        self.completed_by: dict[str, list[int]] = {}   # image id -> members
+        self._children: dict[str, tuple[subprocess.Popen, int, object]] = {}
+        self._saved_env: dict[str, str | None] = {}
+        self._threads: list[threading.Thread] = []   # the members', then the listener
         self._stop_listen = threading.Event()
         self.on_worker = None                # run(run) once the worker is built
 
@@ -237,6 +276,8 @@ class Run:
         self.extra["build_s"] = time.monotonic() - t0
 
         self._tmp = tempfile.mkdtemp(prefix="perfbench-", dir=os.environ.get("TMPDIR"))
+        self._set_switches()
+        self._start_services()
         t0 = time.monotonic()
         self.pools = pool.make_pools(self.traffic["pools"], self.seed, self.device)
         if self.device.type == "cuda":   # the peak is the program's, not the pool's
@@ -253,12 +294,17 @@ class Run:
         env.update({k: os.path.join(self._tmp, f) for k, f in BACKEND_PATHS.items()})
         if self.device.type != "cuda":
             env["DEVICE_PLATFORM"] = "cpu"
+        env.update(self._await_services())
         cfg = ipconfig.load(env)
         self.topic = cfg.broker.processing_topic
         self.results_topic = cfg.broker.results_topic
         self.meta = build_metadata_store(cfg.db)
         self.store = build_object_store(cfg.storage)
         self.broker = build_broker(cfg.broker)
+        own_clients = cfg.broker.backend in NETWORK_BROKERS
+        if own_clients:   # before any member joins
+            for topic in (self.topic, self.results_topic):
+                self.broker.create_topic(topic, cfg.broker.partitions)
         for originals in self.pools.values():
             for o in originals:
                 o.path = self.store.save_original(
@@ -266,19 +312,139 @@ class Run:
         t0 = time.monotonic()
         module, cls = self.cfg["worker"].split(":")
         __import__(module)
-        self.worker = getattr(sys.modules[module], cls)(
-            cfg, meta=self.meta, store=self.store, broker=self.broker)
+        for _ in range(self.members):
+            self.workers.append(getattr(sys.modules[module], cls)(
+                cfg, meta=self.meta, store=self.store,
+                broker=build_broker(cfg.broker) if own_clients else self.broker))
+        self.worker = self.workers[0]
         self.extra["worker_s"] = time.monotonic() - t0
+        if self.members > 1:
+            self._count_completions()
         if self.on_worker is not None:
             self.on_worker(self)
         if self.trace:
-            tracing.instrument(self.worker.engine, self.spans)
-        self._threads = [threading.Thread(target=self.worker.run, name="worker"),
-                         threading.Thread(target=self._listen, name="results",
-                                          args=(self._stop_listen,))]
+            for w in self.workers:
+                tracing.instrument(w.engine, self.spans)
+        self._threads = [threading.Thread(target=w.run, name="worker" if k == 0 else f"worker{k}")
+                         for k, w in enumerate(self.workers)]
+        self._threads.append(threading.Thread(target=self._listen, name="results",
+                                              args=(self._stop_listen,)))
         for t in self._threads:
             t.start()
+        if own_clients:
+            self._await_group(cfg.broker.group_id, cfg.broker.partitions)
         self.warm()
+
+    def _set_switches(self) -> None:
+        """The configuration's keys that ``config.load`` does not read, such
+        as the engine's ``IMAGEPROCESSOR_*`` switches, go into this
+        process's environment, where the program reads them (the engine
+        once as it is built, the splice on every call), until ``close``."""
+        env = self.cfg["env"]
+        keys = sorted(set(env) - config_keys())
+        self._saved_env = {k: os.environ.get(k) for k in keys}
+        os.environ.update({k: str(env[k]) for k in keys})
+
+    def _restore_env(self) -> None:
+        for k, v in self._saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self._saved_env = {}
+
+    def _start_services(self) -> None:
+        """Each of the configuration's services (``spec.SERVICES``) as a
+        child process, as a deployment runs its broker: not a thread of
+        this interpreter. It gets a free loopback port, this run's
+        environment with the configuration's ``env``, and no card."""
+        for name in self.services:
+            port = free_port()
+            args = [a.format(port=port) for a in spec.SERVICES[name]["args"]]
+            env = {**os.environ, **{k: str(v) for k, v in self.cfg["env"].items()},
+                   "CUDA_VISIBLE_DEVICES": ""}
+            log = open(os.path.join(self._tmp, f"{name}.log"), "wb")
+            try:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "imageprocessor_tpu_torch.service", *args],
+                    cwd=spec.repo_root(), env=env, stdin=subprocess.DEVNULL,
+                    stdout=log, stderr=subprocess.STDOUT)
+            except OSError:
+                log.close()
+                raise
+            self._children[name] = (proc, port, log)
+
+    def _await_services(self) -> dict[str, str]:
+        """Waits until each service accepts a TCP connection. Returns the
+        variables that point the members' ``Config`` at them."""
+        out: dict[str, str] = {}
+        for name, (proc, port, _log) in self._children.items():
+            deadline = time.monotonic() + SERVICE_WAIT_S
+            while True:
+                try:
+                    socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+                    break
+                except OSError:
+                    pass
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    with open(os.path.join(self._tmp, f"{name}.log"), "rb") as f:
+                        tail = f.read()[-2000:].decode(errors="replace")
+                    raise RuntimeError(
+                        f"service {name} did not accept a connection on port {port} "
+                        f"within {SERVICE_WAIT_S} s (exit code {proc.poll()}): {tail}")
+                time.sleep(0.05)
+            out.update({k: v.format(port=port)
+                        for k, v in spec.SERVICES[name]["env"].items()})
+        return out
+
+    def _stop_services(self) -> None:
+        """SIGTERM each service and wait for it (a kill where it has not
+        exited after ``SERVICE_STOP_S``); its exit code goes to
+        ``extra["service_exit"]``."""
+        for name, (proc, _port, log) in self._children.items():
+            try:
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+                    try:
+                        proc.wait(SERVICE_STOP_S)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+            finally:
+                log.close()
+            self.extra.setdefault("service_exit", {})[name] = proc.returncode
+        self._children = {}
+
+    def _await_group(self, group: str, partitions: int) -> None:
+        """Waits until every member holds its assignment from one round of
+        the consumer group and every partition is owned, so that no
+        rebalance falls in the warm-up or the window: a member that is
+        mid-batch through a round is dropped and its batch redelivered.
+        Reads each member's client's own view of its membership."""
+        deadline = time.monotonic() + GROUP_WAIT_S
+        while True:
+            views = [w.broker._consumers.get((self.topic, group)) for w in self.workers]
+            if all(c is not None and c.joined for c in views) \
+                    and len({c.generation for c in views}) == 1 \
+                    and sorted(p for c in views for p in c.partitions) == list(range(partitions)):
+                self.extra["member_partitions"] = [sorted(c.partitions) for c in views]
+                return
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the {self.members} members did not settle in group "
+                                   f"{group} within {GROUP_WAIT_S} s")
+            time.sleep(0.05)
+
+    def _count_completions(self) -> None:
+        """Which member completed each upload: a wrapper on each member's
+        ``_finish_message``, the call that records, acks and answers one."""
+        for k, w in enumerate(self.workers):
+            def finish(msg, task, eng_res, k=k, real=w._finish_message):
+                real(msg, task, eng_res)
+                if eng_res.result.status.value == "completed":
+                    with self.cond:
+                        self.completed_by.setdefault(task.image_id, []).append(k)
+
+            w._finish_message = finish
 
     def warm(self) -> None:
         """The traffic file's bursts ([pool, n, flags]): n uploads at once,
@@ -293,20 +459,35 @@ class Run:
         self.extra["warm_s"] = time.monotonic() - t0
 
     def stop_worker(self) -> None:
-        self.worker.stop()
-        self._threads[0].join(WAIT_S)
+        """Stops every member, then the results listener."""
+        for w in self.workers:
+            w.stop()
+        for t in self._threads[:-1]:
+            t.join(WAIT_S)
         self._stop_listen.set()
-        self._threads[1].join(WAIT_S)
+        self._threads[-1].join(WAIT_S)
         if any(t.is_alive() for t in self._threads):
-            raise RuntimeError("the worker or the results thread did not stop")
+            raise RuntimeError("a worker or the results thread did not stop")
 
     def close(self) -> None:
-        if self.worker is not None:
+        """Whatever set-up reached: stops and closes the members and the
+        harness's own broker client, then the services, then restores the
+        environment."""
+        try:
             if any(t.is_alive() for t in self._threads):
                 self.stop_worker()
-            self.worker.close()
-        if self._tmp:
-            shutil.rmtree(self._tmp, ignore_errors=True)
+            for w in self.workers:
+                w.close()
+            if self.broker is not None and all(w.broker is not self.broker
+                                               for w in self.workers):
+                self.broker.close()
+        finally:
+            try:
+                self._stop_services()
+            finally:
+                self._restore_env()
+                if self._tmp:
+                    shutil.rmtree(self._tmp, ignore_errors=True)
 
     # --- the checks ----------------------------------------------------
 
@@ -344,6 +525,10 @@ class Run:
         sample = self.sample()
         judged = self.judge(sample).values()
         self.extra["sampled"] = len(sample)
+        if self.members > 1:
+            self.extra["member_completed"] = [
+                sum(1 for i in self.judged if k in self.completed_by.get(i, ()))
+                for k in range(self.members)]
         out = {"incomplete_uploads": (bad_records, 0), "bad_variants": (bad_objects, 0)}
         for name in PIXEL_CHECKS:
             out[name] = (max((j[name] for j in judged), default=0.0), limits[name])
@@ -409,7 +594,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
              on_worker=None) -> tuple[dict, Run]:
     """One run of the workload ``name``. Returns (the result line as a
     dict, the Run). ``on_worker(run)``, for tests and the control, runs
-    once the worker is built, before its warm-up."""
+    once the members are built, before they start."""
     bench = bench or spec.load_benchmark()
     cell = spec.workload(bench, name)
     cfg = spec.config(cell["config"])

@@ -6,7 +6,14 @@ its own, so that a later change adds a cell, a configuration, a mix or a
 metric by adding files and entries, never by editing one:
 
 * ``configs/<config>.json``: the worker class, the environment its
-  ``Config`` is loaded from, the backends, source, reduced and assumed;
+  ``Config`` is loaded from, the backends, source, reduced and assumed,
+  and the deployment's shape in three optional keys (``deployment``):
+  ``services``, the program's servers the run starts as child processes
+  before any broker is built (``SERVICES``); ``members``, how many
+  workers of the class serve as one consumer group (default 1); and the
+  keys of ``env`` that the program's ``config.load`` does not read, such
+  as the engine's ``IMAGEPROCESSOR_*`` switches, which the run sets in
+  its own environment until it closes;
 * ``traffic/<traffic>.json``: the generator kind, the pools of
   originals, the mix of upload flags, the rate or the backlog depth and
   the warm-up bursts;
@@ -52,6 +59,31 @@ def workload(bench: dict, name: str) -> dict:
 
 def config(name: str) -> dict:
     return _json(HERE / "configs" / f"{name}.json")
+
+
+# the program's servers a configuration may list under "services", each
+# started as ``python -m imageprocessor_tpu_torch.service <args>`` on a
+# free loopback port; "env" is what the members' Config is loaded with
+# to reach it. "{port}" stands for the port.
+SERVICES = {
+    "kafkaserver": {"args": ["kafkaserver", "--port", "{port}"],
+                    "env": {"KAFKA_BROKERS": "127.0.0.1:{port}"}},
+}
+
+
+def deployment(cfg: dict) -> tuple[list[str], int]:
+    """A configuration's services and its number of members, refused
+    before anything is built where a service is unknown or there are
+    fewer than one member."""
+    services = list(cfg.get("services", []))
+    unknown = [s for s in services if s not in SERVICES]
+    if unknown:
+        raise ValueError(f"unknown service(s) {unknown}: the harness runs "
+                         f"{sorted(SERVICES)}")
+    members = cfg.get("members", 1)
+    if not isinstance(members, int) or isinstance(members, bool) or members < 1:
+        raise ValueError(f"members must be a whole number of at least 1, got {members!r}")
+    return services, members
 
 
 def traffic(cell: dict) -> dict:
