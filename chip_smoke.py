@@ -215,7 +215,16 @@ Phases (any failure exits non-zero):
    plane byte of the staged path must come from a slab
    (engine_h2d_pinned_bytes, no engine_stage_pool_misses). It prints each
    path's pack time, its H2D rate (engine_h2d_bytes over the h2d spans),
-   its device span and its peak card memory above the allocation before.
+   its device span and its peak card memory above the allocation before;
+22. the group — the benchmark's cell kafka-topology.camera12mp-backlog
+   (perfbench/, in process through ``harness.run_cell``, a 10 s window)
+   on three seeds: two PipelinedWorker members of image-processor-group
+   on the ``kafkaserver`` child, 3-partition topics. Each run must be
+   ``correct`` against perfbench/reference.py, the child must exit 0,
+   and the group is held to perfbench/group_reference.py: each member's
+   partitions are ``range_assign`` of the members' ids, and every judged
+   upload was completed once, by ``owner`` of its key. It prints each
+   run's rate, the completions by member and the count misrouted.
 
 B2's and B4's bounds are counted twice: by the bytes their taps touch,
 and by the 32-byte sectors those bytes lie in (the card's memory moves
@@ -232,7 +241,7 @@ times come from the bench's ``time_ms`` (CUDA events on a busy stream).
 The line before the last is the card's name and power limit as
 nvidia-smi gives them, the one before it a JSON summary of the kernels
 (launches on the main paths, phase 15's HTTP uploads, phase 17's bench
-steps, phase 18's Kafka tasks and phases 19's and 20's runs among them, max
+steps, phase 18's Kafka tasks and the runs of phases 19-22 among them, max
 error, ms, plain_ms, bound_ms, bound_by,
 roofline_share, byte_bound_ms, and library_ms: null, since no single
 PyTorch call computes any of the four functions); the last line is
@@ -2035,6 +2044,62 @@ def phase_staging(card: str) -> dict:
     return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
 
+def group_check(run) -> dict:
+    """A Kafka group's run of the benchmark's harness (``harness.Run``)
+    held to perfbench/group_reference.py: each member's id and partitions
+    from its own client, the partitions range assignment gives those ids,
+    and which member completed each judged upload against the owner of
+    its key (the image id, as the API keys its produce)."""
+    from perfbench import group_reference as ref
+
+    env = run.cfg["env"]
+    group, n = env["KAFKA_GROUP_ID"], int(env["BROKER_PARTITIONS"])
+    views = [w.broker._consumers[(run.topic, group)] for w in run.workers]
+    ids = [c.member_id for c in views]
+    want = ref.range_assign(ids, range(n))
+    by = {i: run.completed_by.get(i, []) for i in run.judged}
+    return {"judged": len(by),
+            "member_partitions": [sorted(c.partitions) for c in views],
+            "range_assign": [want[m] for m in ids],
+            "member_completed": [sum(k in ks for ks in by.values())
+                                 for k in range(len(ids))],
+            "not_once": sum(len(ks) != 1 for ks in by.values()),
+            "misrouted": sum(ids[k] != ref.owner(i.encode(), ids, n)
+                             for i, ks in by.items() for k in ks)}
+
+
+def phase_group(card: str) -> dict:
+    """Phase 22: the benchmark's Kafka group cell on three seeds with a
+    10 s window, every run correct, its child exited 0, the assignment
+    and every completion as perfbench/group_reference.py gives them.
+    Returns the launches."""
+    from perfbench import harness
+
+    seeds = (3220000001, 3220000002, 3220000003)
+
+    counters = kernel_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    for seed in seeds:
+        line, run = harness.run_cell("kafka-topology.camera12mp-backlog", seed,
+                                     10.0, False, "cuda:0")
+        got = group_check(run)
+        rate = line["metrics"]["images_per_s"]["value"]
+        log(f"[22 group] seed {seed}: {rate:.2f} images/s, correct {line['correct']}, "
+            f"failed {line['failed']}, {json.dumps(got)}, "
+            f"kafkaserver exit {run.extra['service_exit']}; {card}")
+        if not line["correct"] or line["failed"]:
+            fail(f"phase 22: seed {seed} not correct: {line['checks']}")
+        if run.extra["service_exit"] != {"kafkaserver": 0}:
+            fail(f"phase 22: kafkaserver exit {run.extra['service_exit']}")
+        if got["member_partitions"] != got["range_assign"] or got["not_once"] \
+                or got["misrouted"]:
+            fail(f"phase 22: the group departs from group_reference: {got}")
+    log(f"[22 group] {len(seeds)} seeds: every upload completed once, by its "
+        "key's owner under range assignment")
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
 def main_sources() -> list:
     """Phase 5's originals as (pixels, 4:2:0?): eight 12 MP photos, 1920 x
     1080 and 640 x 480, all 4:2:0, and 1600 x 1200 at 4:4:4."""
@@ -2046,10 +2111,11 @@ def main_sources() -> list:
 
 def main(argv: list[str] | None = None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    args.add_argument("--phase", choices=["19", "20", "21"],
+    args.add_argument("--phase", choices=["19", "20", "21", "22"],
                       help="run only phases 1, 2 and this one (19: routes "
                            "and replicas, 20: the space axis, 21: the "
-                           "staging; on a host with any number of cards); "
+                           "staging, 22: the Kafka group; on a host with "
+                           "any number of cards); "
                            "prints its launches and the card line, not the "
                            "kernels line")
     args = args.parse_args(argv)
@@ -2125,6 +2191,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.phase:
         if args.phase == "21":
             launched = phase_staging(card)
+        elif args.phase == "22":
+            launched = phase_group(card)
         else:
             blobs = [jpeg(img, sub) for img, sub in main_sources()]
             launched = (phase_routes(card, oracle, blobs) if args.phase == "19"
@@ -3138,6 +3206,9 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 21. the staged device stage against the packed one
     stage_launches = phase_staging(card)
 
+    # ---- 22. the benchmark's Kafka group against the group's reference
+    group_launches = phase_group(card)
+
     def row(name, key, source, replaces, phase, launched, err, ms, plain, b):
         # library_ms: no single PyTorch call computes any of the four:
         # torch has no 8x8 DCT (B1, B3), and interpolate takes one output
@@ -3149,7 +3220,8 @@ def main(argv: list[str] | None = None) -> int:
                 "launches": (launched + tx_launches[key] + single_launches[key]
                              + svc_launches[key] + bench_launches[key]
                              + topo_launches[key] + route_launches[key]
-                             + space_launches[key] + stage_launches[key]),
+                             + space_launches[key] + stage_launches[key]
+                             + group_launches[key]),
                 "launches_by_phase": {phase: launched, "11": tx_launches[key],
                                       "12": single_launches[key],
                                       "15": svc_launches[key],
@@ -3157,7 +3229,8 @@ def main(argv: list[str] | None = None) -> int:
                                       "18": topo_launches[key],
                                       "19": route_launches[key],
                                       "20": space_launches[key],
-                                      "21": stage_launches[key]},
+                                      "21": stage_launches[key],
+                                      "22": group_launches[key]},
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
                 "roofline_share": b["ms"] / ms,

@@ -53,6 +53,7 @@ from imageprocessor_tpu_torch.broker import kafkawire as kw
 from imageprocessor_tpu_torch.broker.base import Broker, BrokerMessage, partition_for_key
 from imageprocessor_tpu_torch.errors import MessageQueueError
 from imageprocessor_tpu_torch.utils import get_logger
+from imageprocessor_tpu_torch.utils.metrics import METRICS
 
 log = get_logger("kafka")
 
@@ -536,109 +537,119 @@ class KafkaBroker(Broker):
         self._coord.pop(group, None)
 
     def _join(self, c: _Consumer) -> None:
-        """JoinGroup/SyncGroup until stable; range partition assignment."""
-        sub = kw.encode_subscription([c.topic])
-        for _attempt in range(25):
-            # Resolve the coordinator PER ATTEMPT: NOT_COORDINATOR and
-            # connection errors drop the cache below, and retrying the
-            # stale address 25 times can never succeed.
-            try:
-                coord = self._coordinator(c.group)
-            except (OSError, kw.WireError, MessageQueueError):
-                time.sleep(0.05)
-                continue
-            try:
-                jver = self._pick_version(coord, kw.JOIN_GROUP, 2)
-            except MessageQueueError:
-                time.sleep(0.05)
-                continue
-            body = join_group_body(c.group, c.member_id,
-                                   _SESSION_TIMEOUT_MS, sub, jver)
-            try:
-                # The coordinator parks joins up to the rebalance
-                # timeout; give the socket that long plus margin.
-                r = self._req(coord, kw.JOIN_GROUP, jver, body,
-                              timeout=_SESSION_TIMEOUT_MS / 1000.0 + 10.0)
-            except (OSError, kw.WireError):
-                self._drop_coordinator(c.group)
-                time.sleep(0.05)
-                continue
-            if jver >= 2:
-                r.i32()  # throttle_time_ms
-            err = r.i16()
-            generation = r.i32()
-            r.string()  # protocol
-            leader = r.string()
-            member_id = r.string()
-            members = r.array(lambda rr: (rr.string(), rr.bytes_()))
-            if err == kw.UNKNOWN_MEMBER_ID:
-                c.member_id = ""
-                continue
-            if err in _RETRIABLE:
-                if err == kw.NOT_COORDINATOR:
-                    self._drop_coordinator(c.group)
-                time.sleep(0.05)
-                continue
-            if err != kw.NONE:
-                raise MessageQueueError(f"join_group error {err}")
-            c.member_id = member_id
-            c.generation = generation
+        """JoinGroup/SyncGroup until stable; range partition assignment.
+        One ``group_join`` span covers the whole round, retries included,
+        and ``kafka_group_joins`` counts the rounds that complete: a
+        rebalance inside a measured window shows in both."""
+        # imported here: a process that only produces (the API) never
+        # joins a group and so never loads torch
+        from imageprocessor_tpu_torch.utils.tracing import span
 
-            assignments: list[tuple[str, bytes]] = []
-            if member_id == leader:
-                # Range assignment over every subscribed topic, like the
-                # reference client's default (consumer.go group config).
-                topics: set[str] = set()
-                for _mid, meta in members:
-                    topics.update(kw.decode_subscription(meta or b""))
-                mids = sorted(mid for mid, _ in members)
-                per_member: dict[str, dict[str, list[int]]] = {
-                    mid: {} for mid in mids}
-                for t in sorted(topics):
-                    pids = [p for p, _ in self._metadata(t, force=True)]
-                    n, k = len(pids), len(mids)
-                    chunk, extra = divmod(n, k)
-                    start = 0
-                    for i, mid in enumerate(mids):
-                        cnt = chunk + (1 if i < extra else 0)
-                        if cnt:
-                            per_member[mid].setdefault(t, []).extend(
-                                pids[start:start + cnt])
-                        start += cnt
-                assignments = [(mid, kw.encode_assignment(tp))
-                               for mid, tp in per_member.items()]
-            body = sync_group_body(c.group, generation, member_id,
-                                   assignments)
-            try:
-                sver = self._pick_version(coord, kw.SYNC_GROUP, 1)
-                # A follower's SyncGroup is parked until the leader
-                # syncs — same extended deadline as JoinGroup.
-                r = self._req(coord, kw.SYNC_GROUP, sver, body,
-                              timeout=_SESSION_TIMEOUT_MS / 1000.0 + 10.0)
-            except MessageQueueError:
-                time.sleep(0.05)
-                continue
-            except (OSError, kw.WireError):
-                self._drop_coordinator(c.group)
-                time.sleep(0.05)
-                continue
-            if sver >= 1:
-                r.i32()  # throttle_time_ms
-            err = r.i16()
-            blob = r.bytes_()
-            if err in _RETRIABLE:
-                if err == kw.NOT_COORDINATOR:
+        with span("group_join", group=c.group) as attrs:
+            sub = kw.encode_subscription([c.topic])
+            for _attempt in range(25):
+                # Resolve the coordinator PER ATTEMPT: NOT_COORDINATOR and
+                # connection errors drop the cache below, and retrying the
+                # stale address 25 times can never succeed.
+                try:
+                    coord = self._coordinator(c.group)
+                except (OSError, kw.WireError, MessageQueueError):
+                    time.sleep(0.05)
+                    continue
+                try:
+                    jver = self._pick_version(coord, kw.JOIN_GROUP, 2)
+                except MessageQueueError:
+                    time.sleep(0.05)
+                    continue
+                body = join_group_body(c.group, c.member_id,
+                                       _SESSION_TIMEOUT_MS, sub, jver)
+                try:
+                    # The coordinator parks joins up to the rebalance
+                    # timeout; give the socket that long plus margin.
+                    r = self._req(coord, kw.JOIN_GROUP, jver, body,
+                                  timeout=_SESSION_TIMEOUT_MS / 1000.0 + 10.0)
+                except (OSError, kw.WireError):
                     self._drop_coordinator(c.group)
-                time.sleep(0.05)
-                continue
-            if err != kw.NONE:
-                raise MessageQueueError(f"sync_group error {err}")
-            owned = kw.decode_assignment(blob or b"").get(c.topic, [])
-            self._apply_assignment(c, owned)
-            c.joined = True
-            c.last_heartbeat = time.monotonic()
-            return
-        raise MessageQueueError("consumer group never stabilized")
+                    time.sleep(0.05)
+                    continue
+                if jver >= 2:
+                    r.i32()  # throttle_time_ms
+                err = r.i16()
+                generation = r.i32()
+                r.string()  # protocol
+                leader = r.string()
+                member_id = r.string()
+                members = r.array(lambda rr: (rr.string(), rr.bytes_()))
+                if err == kw.UNKNOWN_MEMBER_ID:
+                    c.member_id = ""
+                    continue
+                if err in _RETRIABLE:
+                    if err == kw.NOT_COORDINATOR:
+                        self._drop_coordinator(c.group)
+                    time.sleep(0.05)
+                    continue
+                if err != kw.NONE:
+                    raise MessageQueueError(f"join_group error {err}")
+                c.member_id = member_id
+                c.generation = generation
+
+                assignments: list[tuple[str, bytes]] = []
+                if member_id == leader:
+                    # Range assignment over every subscribed topic, like the
+                    # reference client's default (consumer.go group config).
+                    topics: set[str] = set()
+                    for _mid, meta in members:
+                        topics.update(kw.decode_subscription(meta or b""))
+                    mids = sorted(mid for mid, _ in members)
+                    per_member: dict[str, dict[str, list[int]]] = {
+                        mid: {} for mid in mids}
+                    for t in sorted(topics):
+                        pids = [p for p, _ in self._metadata(t, force=True)]
+                        n, k = len(pids), len(mids)
+                        chunk, extra = divmod(n, k)
+                        start = 0
+                        for i, mid in enumerate(mids):
+                            cnt = chunk + (1 if i < extra else 0)
+                            if cnt:
+                                per_member[mid].setdefault(t, []).extend(
+                                    pids[start:start + cnt])
+                            start += cnt
+                    assignments = [(mid, kw.encode_assignment(tp))
+                                   for mid, tp in per_member.items()]
+                body = sync_group_body(c.group, generation, member_id,
+                                       assignments)
+                try:
+                    sver = self._pick_version(coord, kw.SYNC_GROUP, 1)
+                    # A follower's SyncGroup is parked until the leader
+                    # syncs — same extended deadline as JoinGroup.
+                    r = self._req(coord, kw.SYNC_GROUP, sver, body,
+                                  timeout=_SESSION_TIMEOUT_MS / 1000.0 + 10.0)
+                except MessageQueueError:
+                    time.sleep(0.05)
+                    continue
+                except (OSError, kw.WireError):
+                    self._drop_coordinator(c.group)
+                    time.sleep(0.05)
+                    continue
+                if sver >= 1:
+                    r.i32()  # throttle_time_ms
+                err = r.i16()
+                blob = r.bytes_()
+                if err in _RETRIABLE:
+                    if err == kw.NOT_COORDINATOR:
+                        self._drop_coordinator(c.group)
+                    time.sleep(0.05)
+                    continue
+                if err != kw.NONE:
+                    raise MessageQueueError(f"sync_group error {err}")
+                owned = kw.decode_assignment(blob or b"").get(c.topic, [])
+                self._apply_assignment(c, owned)
+                c.joined = True
+                c.last_heartbeat = time.monotonic()
+                attrs["generation"] = generation
+                METRICS.inc("kafka_group_joins")
+                return
+            raise MessageQueueError("consumer group never stabilized")
 
     def _apply_assignment(self, c: _Consumer, owned: list[int]) -> None:
         owned_set = set(owned)

@@ -352,26 +352,30 @@ class Worker:
                 # and writes are idempotent, the replay re-runs them.
                 log.error("Metadata writes failed; leaving for redelivery",
                           image_id=task.image_id, status=res.status.value)
-                self._safe_nack(msg)
+                with span("ack", image_id=task.image_id):
+                    self._safe_nack(msg)
                 METRICS.inc("worker_record_failures")
                 return
-            if res.status is ImageStatus.COMPLETED:
-                self._safe_ack(msg)
-                METRICS.inc("worker_completed")
-            elif eng_res.error_kind == TRANSIENT:
-                self._safe_nack(msg)
-                METRICS.inc("worker_failed_transient")
-            else:
-                # Typed classification (engine tags every failure); the
-                # reference replays failures forever on rebalance — here
-                # permanent input errors are acked to avoid poison loops.
-                self._safe_ack(msg)
-                METRICS.inc("worker_failed_permanent")
-            try:
-                self.broker.produce(self.cfg.broker.results_topic,
-                                    task.image_id.encode(), res.to_json())
-            except Exception:
-                log.error("Failed to publish result", image_id=task.image_id)
+            with span("ack", image_id=task.image_id):
+                if res.status is ImageStatus.COMPLETED:
+                    self._safe_ack(msg)
+                    METRICS.inc("worker_completed")
+                elif eng_res.error_kind == TRANSIENT:
+                    self._safe_nack(msg)
+                    METRICS.inc("worker_failed_transient")
+                else:
+                    # Typed classification (engine tags every failure); the
+                    # reference replays failures forever on rebalance — here
+                    # permanent input errors are acked to avoid poison loops.
+                    self._safe_ack(msg)
+                    METRICS.inc("worker_failed_permanent")
+            payload = res.to_json()
+            with span("publish", image_id=task.image_id, bytes=len(payload)):
+                try:
+                    self.broker.produce(self.cfg.broker.results_topic,
+                                        task.image_id.encode(), payload)
+                except Exception:
+                    log.error("Failed to publish result", image_id=task.image_id)
             self._deliver_webhook(res)
 
     # ------------------------------------------------------------------- loop

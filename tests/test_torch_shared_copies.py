@@ -52,8 +52,16 @@ The copies that differ do so in named places:
   config differ too); ``run_once``, ``_parse_and_fetch`` and
   ``_finish_message`` put the broker's poll, the blob's fetch and the
   metadata writes with the ack and the results produce in ``poll``,
-  ``fetch`` and ``record`` spans (utils/tracing.py, imported in ADDED);
-  every other method is the original's;
+  ``fetch`` and ``record`` spans (utils/tracing.py, imported in ADDED),
+  and inside ``record`` the ack or nack in an ``ack`` span and the
+  results produce in a ``publish`` span; every other method is the
+  original's;
+* broker/kafka.py: ``KafkaBroker._join`` puts its whole JoinGroup /
+  SyncGroup round in a ``group_join`` span (utils/tracing.py, imported
+  inside the method: a process that only produces never loads torch) and
+  counts each completed round in ``kafka_group_joins`` (utils/metrics.py,
+  imported in ADDED), so that a rebalance inside a measured window shows;
+  every other name is the original's;
 * service/pipelined.py: ``run`` starts one device-stage thread per
   engine replica (the engine runs each group whole on one replica, where
   the original's splits every group across its chips), and
@@ -105,7 +113,8 @@ COPIES = ["domain/__init__.py", "domain/image.py", "domain/task.py", "errors.py"
 # names of the original a copy leaves out
 OMITTED: dict[str, set[str]] = {}
 # names a copy has that the original has not
-ADDED = {"service/worker.py": {"from imageprocessor_tpu.utils.tracing"}}
+ADDED = {"service/worker.py": {"from imageprocessor_tpu.utils.tracing"},
+         "broker/kafka.py": {"from imageprocessor_tpu.utils.metrics"}}
 DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
                                  "decode_image", "encode_image"},
            "runtime/coeftx.py": {"_rot_native"},
@@ -123,7 +132,8 @@ DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
                                     "PipelinedWorker._decode_stage",
                                     "PipelinedWorker._handle_message",
                                     "PipelinedWorker._finish_stage"},
-           "service/__main__.py": {"main"}}
+           "service/__main__.py": {"main"},
+           "broker/kafka.py": {"KafkaBroker._join"}}
 STATIC = ["index.html", "app.js", "style.css"]
 # copies whose top-level imports are their own (the host library in place
 # of nativecodec); every other top-level name keeps the original's source

@@ -7,8 +7,12 @@
 * the span tree of the batch ``Worker.run_once`` and of the
   ``PipelinedWorker`` over a few JPEG uploads on the CPU: poll, fetch,
   decode, device (pack, h2d, launch, d2h inside), encode (save inside)
-  and record, with each upload's id and the bytes copied, every span
-  inside the call's own clock bounds;
+  and record (ack and publish inside), with each upload's id and the
+  bytes copied, every span inside the call's own clock bounds;
+* ``ack`` and ``publish`` inside ``record``, once per upload, on the
+  memory, SQLite and Kafka brokers (the Kafka client against the port's
+  in-process ``KafkaServer``), and the Kafka client's ``group_join``
+  span and ``kafka_group_joins`` counter, one of each per round;
 * the metrics the spans feed: ``span_<name>_ms`` once per span (the
   pipelined worker does not wrap the engine's spans a second time), the
   running ``sum`` beside each reservoir, ``engine_h2d_bytes`` and
@@ -25,7 +29,10 @@ import torch
 from PIL import Image as PILImage
 
 from imageprocessor_tpu_torch import config
+from imageprocessor_tpu_torch.broker.kafka import KafkaBroker
+from imageprocessor_tpu_torch.broker.kafkaserver import KafkaServer
 from imageprocessor_tpu_torch.broker.memory import MemoryBroker
+from imageprocessor_tpu_torch.broker.sqlitebroker import SQLiteBroker
 from imageprocessor_tpu_torch.domain import OperationParams, OperationType
 from imageprocessor_tpu_torch.service.pipelined import PipelinedWorker
 from imageprocessor_tpu_torch.service.usecase import ImageUsecase
@@ -38,6 +45,7 @@ from imageprocessor_tpu_torch.utils.tracing import record, span, stop_recording
 N_UPLOADS = 3
 WAIT_S = 90
 DEVICE_CHILDREN = {"pack", "h2d", "launch", "d2h"}
+RECORD_CHILDREN = {"ack", "publish"}
 
 
 def jpeg(h, w, seed):
@@ -62,14 +70,14 @@ def recording_off():
 
 
 class Stack:
-    def __init__(self, cls, root):
+    def __init__(self, cls, root, broker=None):
         cfg = config.load({"DEVICE_PLATFORM": "cpu"})
         cfg.worker.batch_size = 4
         cfg.worker.batch_deadline_ms = 30
         cfg.retries_attempts = 1
         self.meta = SQLiteMetadataStore(":memory:")
         self.store = LocalFSObjectStore(str(root / "objects"))
-        self.broker = MemoryBroker()
+        self.broker = broker if broker is not None else MemoryBroker()
         self.uc = ImageUsecase(self.meta, self.store, self.broker,
                                retries=RetryStrategy(attempts=1, delay_ms=1))
         self.worker = cls(cfg, meta=self.meta, store=self.store, broker=self.broker)
@@ -89,6 +97,14 @@ class Stack:
     def close(self):
         self.worker.stop()
         self.worker.close()
+
+    def until_done(self):
+        """The batch worker's calls until every upload is answered: a
+        Kafka member's first call may fetch only part of the backlog."""
+        deadline = time.monotonic() + WAIT_S
+        while not self.done() and time.monotonic() < deadline:
+            self.worker.run_once()
+        assert self.done()
 
 
 def by_name(recs):
@@ -125,6 +141,7 @@ def check_tree(recs, stack, lo, hi):
     assert sorted(hw for r in devices for hw in r.attrs["hw"]) == [(64, 80)] * N_UPLOADS
     for name in DEVICE_CHILDREN:
         assert all(ids[r.parent].name == "device" for r in names[name]), name
+    check_record_children(recs, want)
     for d in devices:
         kids = by_name(r for r in recs if r.parent == d.id)
         assert set(kids) == DEVICE_CHILDREN
@@ -137,12 +154,28 @@ def check_tree(recs, stack, lo, hi):
     assert len(saves) == len(OPS) * N_UPLOADS
     assert all(ids[r.parent].name == "encode" for r in saves)
     assert set(names) == {"poll", "fetch", "decode", "device", "encode", "save",
-                          "record"} | DEVICE_CHILDREN
+                          "record"} | DEVICE_CHILDREN | RECORD_CHILDREN
     # the counters: every byte copied, each way
     counters = METRICS.snapshot()["counters"]
     assert counters["engine_h2d_bytes"] == sum(r.attrs["bytes"] for r in names["h2d"])
     assert counters["engine_d2h_bytes"] == sum(r.attrs["bytes"] for r in names["d2h"])
     assert counters["engine_pack_images"] == N_UPLOADS
+
+
+def check_record_children(recs, want):
+    """One ack and one publish per upload, each inside that upload's
+    record on its thread, the publish after the ack."""
+    names, ids = by_name(recs), {r.id: r for r in recs}
+    for name in RECORD_CHILDREN:
+        assert sorted(r.attrs["image_id"] for r in names[name]) == sorted(want), name
+        for r in names[name]:
+            parent = ids[r.parent]
+            assert parent.name == "record", name
+            assert parent.attrs["image_id"] == r.attrs["image_id"], name
+    acks = {r.attrs["image_id"]: r for r in names["ack"]}
+    for r in names["publish"]:
+        assert r.attrs["bytes"] > 0
+        assert acks[r.attrs["image_id"]].end_ns <= r.start_ns
 
 
 def test_batch_worker_run_once_span_tree(tmp_path):
@@ -204,7 +237,7 @@ def test_pipelined_worker_span_tree(tmp_path):
         assert len(fetchers) == 1
         assert fetchers <= {r.thread for r in names["poll"]}
         t = METRICS.snapshot()["timings"]
-        for name in ("decode", "encode", "record", "fetch"):
+        for name in ("decode", "encode", "record", "fetch", "ack", "publish"):
             assert t[f"span_{name}_ms"]["count"] == N_UPLOADS, name
         assert t["span_device_ms"]["count"] == len(names["device"])
     finally:
@@ -315,3 +348,64 @@ def test_metrics_keep_a_running_sum():
     assert t["sum"] == sum(values)   # past the reservoir's 2048 samples too
     METRICS.reset()
     assert "unit_ms" not in METRICS.snapshot()["timings"]
+
+
+@pytest.fixture
+def kafka_server():
+    server = KafkaServer(default_partitions=3, rebalance_timeout_s=1.0)
+    yield server
+    server.close()
+
+
+@pytest.mark.parametrize("backend", ["memory", "sqlite", "kafka"])
+def test_ack_and_publish_nest_in_record_on_each_broker(tmp_path, request, backend):
+    if backend == "kafka":
+        broker = KafkaBroker(brokers=[request.getfixturevalue("kafka_server").address])
+    elif backend == "sqlite":
+        broker = SQLiteBroker(str(tmp_path / "broker.db"))
+    else:
+        broker = MemoryBroker()
+    s = Stack(Worker, tmp_path, broker=broker)
+    try:
+        METRICS.reset()
+        recs = record()
+        s.until_done()
+        stop_recording()
+        check_record_children(recs, set(s.ids))
+        names = by_name(recs)
+        assert len(names["record"]) == N_UPLOADS
+        t = METRICS.snapshot()["timings"]
+        for name in ("record", "ack", "publish"):
+            assert t[f"span_{name}_ms"]["count"] == N_UPLOADS, name
+        # the record holds its ack and its publish
+        assert t["span_record_ms"]["sum"] >= t["span_ack_ms"]["sum"] + t["span_publish_ms"]["sum"]
+        # a group round only where the broker is a Kafka client
+        assert ("group_join" in names) == (backend == "kafka")
+    finally:
+        s.close()
+
+
+def test_group_join_is_one_span_and_one_count_per_round(kafka_server):
+    topic, group = "spans-join", "spans-group"
+    member = KafkaBroker(brokers=[kafka_server.address])
+    try:
+        member.create_topic(topic, 3)
+        METRICS.reset()
+        recs = record()
+        member.poll(topic, group)
+        c = member._consumers[(topic, group)]
+        first = c.generation
+        member.poll(topic, group)             # joined: no second round
+        c.joined = False                      # as a failed heartbeat leaves it
+        member.poll(topic, group)
+        stop_recording()
+        joins = by_name(recs)["group_join"]
+        assert [r.attrs["group"] for r in joins] == [group, group]
+        assert [r.attrs["generation"] for r in joins] == [first, c.generation]
+        assert c.generation > first
+        assert all(r.parent is None for r in joins)
+        snap = METRICS.snapshot()
+        assert snap["counters"]["kafka_group_joins"] == 2
+        assert snap["timings"]["span_group_join_ms"]["count"] == 2
+    finally:
+        member.close()
