@@ -9,7 +9,8 @@ micro-batches — the TPU-native expansion of the reference's
 goroutine-pool concurrency (SURVEY.md §2 parallelism table row 1:
 "decode thread pool feeding per-device micro-batch queues"):
 
-  stage 1 (fetch/decode threads): poll broker -> fetch blob -> decode ->
+  stage 1 (poll thread + scan pool of WORKER_CONCURRENCY threads): poll
+           broker -> (scan thread) fetch blob -> decode ->
            DeadlineBatcher (flush on batch size OR deadline — the p99
            latency lever, SURVEY.md §7 hard part (d))
   stage 2 (device thread, one per engine replica): pack group -> fused
@@ -26,6 +27,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from imageprocessor_tpu_torch.broker.base import BrokerMessage
 from imageprocessor_tpu_torch.config import Config
@@ -64,6 +66,22 @@ class PipelinedWorker(Worker):
             deadline_ms=cfg.worker.batch_deadline_ms)
         self._batcher_lock = threading.Lock()
         self._inflight = threading.Semaphore(depth)
+        # Each polled message is fetched and scanned on a thread of its
+        # own, as each of the reference's WORKER_CONCURRENCY goroutines
+        # decodes its own task (the scan leaves the interpreter lock).
+        # Not the engine's pool: the finish stage blocks on whole groups
+        # there, and scans queued behind them would serialize the stages.
+        threads = max(cfg.worker.concurrency, 1)
+        self._scan_pool = ThreadPoolExecutor(max_workers=threads,
+                                             thread_name_prefix="scan")
+        # messages submitted to the pool and not yet finished, at most
+        # 2 x its threads: one scanning and one waiting a thread, so the
+        # blobs and staging slabs they hold stay few, and the poll thread
+        # keeps flushing groups on their deadline while it waits for room
+        self._scan_cap = 2 * threads
+        self._scan_cv = threading.Condition()
+        self._scans_queued = 0
+        self._scans_running = 0
 
     # ---------------------------------------------------------------- stage 1
 
@@ -86,24 +104,26 @@ class PipelinedWorker(Worker):
                     self._stop.wait(self._idle_sleep)
                     continue
                 now_wall = time.time()
-                for msg in msgs:
+                for k, msg in enumerate(msgs):
                     if msg.enqueued_at > 0:  # stage 0 of the decomposition
                         METRICS.observe(
                             "queue_wait_ms",
                             max(0.0, (now_wall - msg.enqueued_at) * 1000.0))
                     # NEVER block indefinitely on the inflight permits:
                     # items sitting in the DeadlineBatcher each hold a
-                    # permit, and only THIS thread can flush them — an
-                    # unconditional acquire() here deadlocks the whole
-                    # pipeline once pending batcher items exhaust the
-                    # semaphore (and any stall delays deadline flushes
-                    # past batch_deadline_ms, defeating the p99 lever).
+                    # permit, and only THIS thread flushes them on their
+                    # deadline — an unconditional acquire() here delays
+                    # deadline flushes past batch_deadline_ms (the p99
+                    # lever) and, once pending batcher items exhaust the
+                    # semaphore, deadlocks the whole pipeline.
                     while not self._inflight.acquire(
                             timeout=self._batcher.deadline_s):
                         self._flush_due()
                         if self._stop.is_set():
-                            return self._drain()
-                    self._handle_message(msg)
+                            return self._drain(msgs[k:])
+                    if not self._submit_scan(msg):
+                        self._inflight.release()
+                        return self._drain(msgs[k:])
                 self._flush_due()
             except Exception as exc:
                 log.error("Decode stage iteration failed", error=str(exc),
@@ -112,8 +132,14 @@ class PipelinedWorker(Worker):
                 self._stop.wait(min(1.0, self._idle_sleep * 10))
         self._drain()
 
-    def _drain(self) -> None:
-        """Flush whatever is pending and signal downstream shutdown."""
+    def _drain(self, unsubmitted=()) -> None:
+        """Nack the polled messages that never reached the scan pool, wait
+        for every submitted scan, then flush whatever is pending and
+        signal downstream shutdown: no item reaches the batcher after the
+        sentinel."""
+        for msg in unsubmitted:
+            self._safe_nack(msg)
+        self._scan_pool.shutdown(wait=True)
         with self._batcher_lock:
             for group in self._batcher.flush_all():
                 self._dispatch(group)
@@ -128,6 +154,58 @@ class PipelinedWorker(Worker):
             METRICS.observe("batcher_wait_ms",
                             max(0.0, (now - it.enqueued_at) * 1000.0))
         self._group_q.put(group)
+
+    def _submit_scan(self, msg: BrokerMessage) -> bool:
+        """Hand ``msg`` (its inflight permit held) to the scan pool once
+        fewer than ``_scan_cap`` scans are queued or running, flushing due
+        groups while it waits; False when stop came first or the pool
+        refused it."""
+        while True:
+            with self._scan_cv:
+                if self._scans_queued < self._scan_cap:
+                    self._scans_queued += 1
+                    break
+                self._scan_cv.wait(self._batcher.deadline_s)
+            self._flush_due()
+            if self._stop.is_set():
+                return False
+        try:
+            self._scan_pool.submit(self._scan, msg)
+        except Exception as exc:   # the pool is shut down
+            log.error("Scan submit failed", error=str(exc))
+            with self._scan_cv:
+                self._scans_queued -= 1
+            return False
+        return True
+
+    def _scan(self, msg: BrokerMessage) -> None:
+        """One message on a scan thread: ``_handle_message``, and the
+        permit released and the message completed as failed if anything
+        escapes it."""
+        with self._scan_cv:
+            overlapped = self._scans_running > 0
+            self._scans_running += 1
+        METRICS.inc("pipelined_scans")
+        if overlapped:
+            METRICS.inc("pipelined_scans_overlapped")
+        try:
+            self._handle_message(msg)
+        except Exception as exc:
+            log.error("Scan failed with unclassified error",
+                      offset=msg.offset, error=str(exc), exc_info=True)
+            try:
+                task = ProcessingTask.from_json(msg.value)
+            except Exception:
+                self._safe_nack(msg)
+                self._inflight.release()
+            else:
+                self._complete(msg, task, self.engine._failed(
+                    task, f"Operation failed: {exc}"))
+        finally:
+            with self._scan_cv:
+                self._scans_running -= 1
+                self._scans_queued -= 1
+                self._scan_cv.notify_all()
 
     def _handle_message(self, msg: BrokerMessage) -> None:
         # Stage-1 policy (unmarshal + blob fetch) is shared with the
@@ -309,6 +387,7 @@ class PipelinedWorker(Worker):
         try:
             self._decode_stage()
         finally:
+            self._scan_pool.shutdown(wait=True)
             for t in device_ts:
                 t.join(timeout=60)
             finish_t.join(timeout=60)

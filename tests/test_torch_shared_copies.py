@@ -71,7 +71,16 @@ The copies that differ do so in named places:
   ``_handle_message``, ``_device_stage`` and ``_finish_stage`` put
   around its calls, ``_handle_message`` passes the upload's id to the
   decode, and ``_decode_stage`` puts the broker's poll in a ``poll``
-  span;
+  span; stage 1 fetches and scans each polled message on a pool of
+  WORKER_CONCURRENCY ``scan`` threads where the original runs
+  ``_handle_message`` inline on its one decode thread: ``__init__`` makes
+  the pool (``concurrent.futures``, imported in ADDED), ``_decode_stage``
+  hands each message to it through ``_submit_scan`` (ADDED: at most
+  2 x the pool's threads queued or running) and ``_scan`` (ADDED: the
+  ``pipelined_scans`` counters, and a failure that escapes
+  ``_handle_message`` completed), ``_drain`` nacks what was polled and
+  never submitted and waits for every scan before the sentinel, and
+  ``run`` shuts the pool down;
 * service/__main__.py: ``main`` resolves the device through the config
   hook, and its ``worker`` mode runs the worker on a thread of its own
   while the main thread joins it: the original runs it on the main
@@ -114,7 +123,10 @@ COPIES = ["domain/__init__.py", "domain/image.py", "domain/task.py", "errors.py"
 OMITTED: dict[str, set[str]] = {}
 # names a copy has that the original has not
 ADDED = {"service/worker.py": {"from imageprocessor_tpu.utils.tracing"},
-         "broker/kafka.py": {"from imageprocessor_tpu.utils.metrics"}}
+         "broker/kafka.py": {"from imageprocessor_tpu.utils.metrics"},
+         "service/pipelined.py": {"from concurrent.futures",
+                                  "PipelinedWorker._submit_scan",
+                                  "PipelinedWorker._scan"}}
 DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
                                  "decode_image", "encode_image"},
            "runtime/coeftx.py": {"_rot_native"},
@@ -127,7 +139,9 @@ DIFFERS = {"runtime/codecs.py": {"from imageprocessor_tpu.runtime",
                                  "Worker.__init__", "Worker.run_once",
                                  "Worker._parse_and_fetch",
                                  "Worker._finish_message"},
-           "service/pipelined.py": {"PipelinedWorker._device_stage",
+           "service/pipelined.py": {"PipelinedWorker.__init__",
+                                    "PipelinedWorker._drain",
+                                    "PipelinedWorker._device_stage",
                                     "PipelinedWorker.run",
                                     "PipelinedWorker._decode_stage",
                                     "PipelinedWorker._handle_message",

@@ -231,11 +231,12 @@ def test_pipelined_worker_span_tree(tmp_path):
         hi = time.time_ns()
         check_tree(recs, s, lo, hi)
         names = by_name(recs)
-        # the decode thread polls and fetches; the engine's decode, device
-        # and encode spans are each counted once, with no wrapper around them
-        fetchers = {r.thread for r in names["fetch"]}
-        assert len(fetchers) == 1
-        assert fetchers <= {r.thread for r in names["poll"]}
+        # the poll thread polls; a scan thread fetches and decodes each
+        # upload; the engine's decode, device and encode spans are each
+        # counted once, with no wrapper around them
+        fetchers = {r.attrs["image_id"]: r.thread for r in names["fetch"]}
+        assert fetchers == {r.attrs["image_id"]: r.thread for r in names["decode"]}
+        assert set(fetchers.values()).isdisjoint(r.thread for r in names["poll"])
         t = METRICS.snapshot()["timings"]
         for name in ("decode", "encode", "record", "fetch", "ack", "publish"):
             assert t[f"span_{name}_ms"]["count"] == N_UPLOADS, name
