@@ -195,16 +195,6 @@ Phases (any failure exits non-zero):
    engine's artifacts byte for byte, each replica having run groups;
    with two cards or more, so does data_axis=2 over two cards, each
    card's launches counted (else one line says it was skipped);
-20. the space axis — phase 5's sources through the default plan, the
-   upload form's other plans with IMAGEPROCESSOR_JPEG_SPLICE=0 (the blend
-   and B3), and flip horizontal, grayscale, crop and rotations by 90 and
-   30 degrees, at space_axis=1 and at space_axis=2 with both strips on
-   cuda:0: every artifact must be byte-identical, and each of B1-B4 must
-   launch twice as often (once per strip of each group). For the 12 MP
-   group's device stage it prints each card's peak allocation and
-   span_device_ms at both settings. With two cards or more the strips
-   also run over cuda:0 and cuda:1 (byte-identical, every kernel launched
-   on both cards); with one, a line says that part did not run;
 21. staging — one group of 32 3000 x 4000 q85 uploads (eight seeded
    photos, four times each) with the default plan through the engine's
    device stage by both paths, in turns: the staged path (each upload
@@ -241,7 +231,7 @@ times come from the bench's ``time_ms`` (CUDA events on a busy stream).
 The line before the last is the card's name and power limit as
 nvidia-smi gives them, the one before it a JSON summary of the kernels
 (launches on the main paths, phase 15's HTTP uploads, phase 17's bench
-steps, phase 18's Kafka tasks and the runs of phases 19-22 among them, max
+steps, phase 18's Kafka tasks and the runs of phases 19, 21 and 22 among them, max
 error, ms, plain_ms, bound_ms, bound_by,
 roofline_share, byte_bound_ms, and library_ms: null, since no single
 PyTorch call computes any of the four functions); the last line is
@@ -1757,176 +1747,6 @@ def phase_routes(card: str, oracle, blobs: list) -> dict:
     return launched
 
 
-def phase_space(card: str, blobs: list) -> dict:
-    """Phase 20: the space axis. Phase 5's sources through the default
-    plan, the upload form's other plans with the splice off (the blend and
-    B3), and flip horizontal, grayscale, crop and rotations by 90 and 30
-    degrees, at space_axis=1 on cuda:0 and at space_axis=2 with both
-    strips on cuda:0: every artifact byte-identical, and each of B1-B4
-    launched twice as often (once per strip of each group that ran it).
-    For the 12 MP group's device stage (the default plan and the form's
-    three flags), each card's peak allocation above what it held before
-    (max_memory_allocated, reset just before) and span_device_ms at both
-    settings. With two cards or more, the same over cuda:0 and cuda:1,
-    every kernel launched on both cards. Every launch count is set to 0
-    just before each run and read just after. Returns the launches of the
-    runs."""
-    from imageprocessor_tpu_torch import kernels
-    from imageprocessor_tpu_torch.domain import (
-        ImageStatus,
-        OperationParams,
-        OperationType,
-        ProcessingTask,
-    )
-    from imageprocessor_tpu_torch.models.plan import normalize_operations
-    from imageprocessor_tpu_torch.runtime.batcher import BatchItem, group_items
-    from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
-    from imageprocessor_tpu_torch.utils.metrics import METRICS
-
-    counters = kernel_counters()
-    launched = dict.fromkeys(KERNEL_KEYS, 0)
-    entries = {"B1": "ip_decode_coefs", "B2": "ip_fused_resample",
-               "B3": "ip_encode_420", "B4": "ip_planar_resample"}
-
-    def counted(fn):
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        out = fn()
-        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-        for k, v in got.items():
-            launched[k] += v
-        return out, got
-
-    class Store:
-        def __init__(self):
-            self.blobs: dict[str, bytes] = {}
-
-        def save_processed(self, path, data, mime=None):
-            self.blobs[path] = data
-
-    P, T = OperationParams, OperationType
-    default = [P(T.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
-               P(T.RESIZE, {"width": 1024, "height": 768, "keep_aspect": True})]
-    mark = P(T.WATERMARK, {"text": "\u00a9 ImageProcessor", "opacity": 0.5,
-                           "position": "bottom-right"})
-    plans = {"default": default}
-    for flags in ("t", "r", "w", "tw", "rw", "trw"):
-        plans[f"form {flags}"] = [op for flag, op in zip("trw", (*default, mark))
-                                  if flag in flags]
-    plans.update({
-        "flip horizontal": [P(T.FLIP, {"direction": "horizontal"})],
-        "grayscale": [P(T.GRAYSCALE, {})],
-        "crop": [P(T.CROP, {"x": 500, "y": 300, "width": 2000, "height": 1500})],
-        "rotate 90": [P(T.ROTATE, {"angle": 90})],
-        "rotate 30": [P(T.ROTATE, {"angle": 30})]})
-
-    def run(engine, ops):
-        """-> (the artifacts, images/s on the host clock)."""
-        engine.store.blobs.clear()
-        t0 = time.monotonic()
-        res = engine.process_tasks([
-            (ProcessingTask(id=f"t{k}", image_id=f"i{k}", original_path="o",
-                            bucket="images", operations=ops, format="jpeg"), b)
-            for k, b in enumerate(blobs)])
-        wall = time.monotonic() - t0
-        for r in res:
-            if r.result.status is not ImageStatus.COMPLETED:
-                fail(f"phase 20: {r.result.error}")
-        return dict(engine.store.blobs), len(blobs) / wall
-
-    def group_12mp(engine, ops):
-        """The 8 x 12 MP group of the sources, packed as the engine packs it."""
-        plan = normalize_operations(ops)
-        items = []
-        for k, blob in enumerate(blobs[:B]):
-            arr, _fmt, layout, hw, sctx = engine.decode_for_plan_ex(blob, plan, "jpeg")
-            items.append(BatchItem(item_id=str(k), image=arr, plan_key=plan.group_key(),
-                                   payload=(k, None, "jpeg", plan), layout=layout,
-                                   valid_hw=hw, splice=sctx))
-        [group] = group_items(items, max_batch=B)
-        return group
-
-    def device_stage(engine, group):
-        """A warm device_group of ``group``: -> ({card: peak MB above its
-        allocation before}, span_device_ms)."""
-        cards = sorted({c.index for r in engine.replicas for c in r})
-        engine.device_group(group)
-        for c in cards:
-            torch.cuda.synchronize(c)
-        base = {c: torch.cuda.memory_allocated(c) for c in cards}
-        for c in cards:
-            torch.cuda.reset_peak_memory_stats(c)
-        METRICS.reset()
-        engine.device_group(group)
-        for c in cards:
-            torch.cuda.synchronize(c)
-        peak = {c: (torch.cuda.max_memory_allocated(c) - base[c]) / 1e6 for c in cards}
-        return peak, METRICS.snapshot()["timings"]["span_device_ms"]["max"]
-
-    have = torch.cuda.device_count()
-    engines = []
-    os.environ["IMAGEPROCESSOR_JPEG_SPLICE"] = "0"
-    try:
-        one = TorchProcessingEngine(Store(), device="cuda:0", batch_size=B)
-        engines.append(one)
-        two = TorchProcessingEngine(Store(), devices=["cuda:0"], space_axis=2,
-                                    batch_size=B)
-        engines.append(two)
-        pair = None
-        if have >= 2:
-            pair = TorchProcessingEngine(Store(), device="cuda", space_axis=2,
-                                         batch_size=B)
-            engines.append(pair)
-        for name, ops in plans.items():
-            (art1, r1), n1 = counted(lambda: run(one, ops))
-            (art2, r2), n2 = counted(lambda: run(two, ops))
-            diff = [p for p in art1 if art2.get(p) != art1[p]]
-            if art2.keys() != art1.keys() or diff:
-                fail(f"phase 20 {name}: two strips on cuda:0 differ from one card "
-                     f"in {len(diff)} of {len(art1)} artifacts: {diff[:3]}")
-            if n2 != {k: 2 * v for k, v in n1.items()}:
-                fail(f"phase 20 {name}: launches one strip {n1}, two strips {n2}")
-            line = (f"[20 space] {card}: {name}, {len(art1)} artifacts byte-identical "
-                    f"with two strips on cuda:0; images/s one strip {r1:.2f}, two "
-                    f"{r2:.2f} (host clock); launches one strip {n1}, two {n2}")
-            if pair is not None:
-                with kernels.count_lock:
-                    before = dict(kernels.entry_launches)
-                (art_p, r_p), n_p = counted(lambda: run(pair, ops))
-                with kernels.count_lock:
-                    after = dict(kernels.entry_launches)
-                per = {k: [after.get((e, c), 0) - before.get((e, c), 0) for c in (0, 1)]
-                       for k, e in entries.items()}
-                if art_p != art1 or n_p != n2 or any(
-                        v != [n1[k]] * 2 for k, v in per.items()):
-                    fail(f"phase 20 {name}: two strips over cuda:0 and cuda:1: "
-                         f"identical {art_p == art1}, launches {n_p}, per card {per}")
-                line += (f"; over cuda:0 and cuda:1 byte-identical, {r_p:.2f} "
-                         f"images/s, per card {per}")
-            log(line)
-        for name in ("default", "form trw"):
-            for label, eng in (("one strip", one), ("two strips on cuda:0", two),
-                               ("two strips over cuda:0 and cuda:1", pair)):
-                if eng is None:
-                    continue
-                group = group_12mp(eng, plans[name])
-                (peak, ms), _ = counted(lambda: device_stage(eng, group))
-                log(f"[20 space] {card}: {name} plan, 8 x 12 MP group, {label}: "
-                    f"span_device_ms {ms:.1f}, peak MB above the card's "
-                    "allocation before the call " + ", ".join(
-                        f"cuda:{c} {v:.1f}" for c, v in peak.items())
-                    + f" (card total {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB)")
-        if pair is None:
-            log(f"[20 space] the two-card part did not run: this host has {have} "
-                "CUDA card")
-    finally:
-        os.environ.pop("IMAGEPROCESSOR_JPEG_SPLICE", None)
-        for e in engines:
-            e.close()
-    log(f"[20 space] launches of the phase's runs: {launched}")
-    return launched
-
-
 def phase_staging(card: str) -> dict:
     """Phase 21: one 32 x 12 MP group through the staged and the packed
     device stage, in turns, on fresh scans each time: B1's operands and
@@ -1966,9 +1786,11 @@ def phase_staging(card: str) -> dict:
         return inner(*args)
 
     def packed(group, b, device):
-        """The packed path's layout: Group.pack's host canvases."""
+        """The packed path: Group.pack's host canvases, each copied to the
+        card from pageable memory."""
         with span("pack", images=len(group.items)):
-            return group.pack(pad_batch_to=b)
+            imgs, src_hw = group.pack(pad_batch_to=b)
+        return [engine_mod._h2d(a, device) for a in imgs], src_hw
 
     def scanned():
         with ThreadPoolExecutor(3) as ex:
@@ -2111,11 +1933,10 @@ def main_sources() -> list:
 
 def main(argv: list[str] | None = None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    args.add_argument("--phase", choices=["19", "20", "21", "22"],
+    args.add_argument("--phase", choices=["19", "21", "22"],
                       help="run only phases 1, 2 and this one (19: routes "
-                           "and replicas, 20: the space axis, 21: the "
-                           "staging, 22: the Kafka group; on a host with "
-                           "any number of cards); "
+                           "and replicas, 21: the staging, 22: the Kafka "
+                           "group; on a host with any number of cards); "
                            "prints its launches and the card line, not the "
                            "kernels line")
     args = args.parse_args(argv)
@@ -2195,8 +2016,7 @@ def main(argv: list[str] | None = None) -> int:
             launched = phase_group(card)
         else:
             blobs = [jpeg(img, sub) for img, sub in main_sources()]
-            launched = (phase_routes(card, oracle, blobs) if args.phase == "19"
-                        else phase_space(card, blobs))
+            launched = phase_routes(card, oracle, blobs)
         print(json.dumps({"phase": args.phase, "launches": launched}))
         print(card)
         return 0
@@ -2850,7 +2670,8 @@ def main(argv: list[str] | None = None) -> int:
                 fail(f"plan {ops}: a JPEG source took layout {group.layout}")
             _, outs, out_hws, _ = engine.device_group(group)
             packed, _ = group.pack(pad_batch_to=quantize_batch(len(group.items)))
-            dec_t = engine._upload(packed, group, engine.device)
+            dec_t = engine._upload([torch.from_numpy(a).to(engine.device) for a in packed],
+                                   group, engine.device)
             dec = dec_t.cpu().numpy()
             for oi, o in enumerate(plan.ops):
                 kind = o.type.value
@@ -2900,7 +2721,8 @@ def main(argv: list[str] | None = None) -> int:
         for group in plan_groups(plan):
             _, outs, _, _ = engine.device_group(group)
             packed, ghw = group.pack(pad_batch_to=quantize_batch(len(group.items)))
-            dec_t = engine._upload(packed, group, engine.device)
+            dec_t = engine._upload([torch.from_numpy(a).to(engine.device) for a in packed],
+                                   group, engine.device)
             dims = [it.hw for it in group.items]
             for oi, o in enumerate(plan.ops):
                 if o.type.value not in ("grayscale", "flip"):
@@ -3200,9 +3022,6 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 19. the device-JPEG switch, the native rotation, the replicas
     route_launches = phase_routes(card, oracle, blobs)
 
-    # ---- 20. the space axis
-    space_launches = phase_space(card, blobs)
-
     # ---- 21. the staged device stage against the packed one
     stage_launches = phase_staging(card)
 
@@ -3220,15 +3039,13 @@ def main(argv: list[str] | None = None) -> int:
                 "launches": (launched + tx_launches[key] + single_launches[key]
                              + svc_launches[key] + bench_launches[key]
                              + topo_launches[key] + route_launches[key]
-                             + space_launches[key] + stage_launches[key]
-                             + group_launches[key]),
+                             + stage_launches[key] + group_launches[key]),
                 "launches_by_phase": {phase: launched, "11": tx_launches[key],
                                       "12": single_launches[key],
                                       "15": svc_launches[key],
                                       "17": bench_launches[key],
                                       "18": topo_launches[key],
                                       "19": route_launches[key],
-                                      "20": space_launches[key],
                                       "21": stage_launches[key],
                                       "22": group_launches[key]},
                 "max_abs_err": err, "ms": ms,

@@ -60,8 +60,6 @@ _SIGNATURES = {
 # lock, since the replicas of an engine launch from threads of their own
 count_lock = threading.Lock()
 card_launches: dict[int, int] = {}
-# launches per (C entry point, card)
-entry_launches: dict[tuple[str, int], int] = {}
 
 
 class KernelError(RuntimeError):
@@ -162,8 +160,6 @@ def launch(name: str, device: torch.device, *args) -> None:
     check(rc, name)
     with count_lock:
         card_launches[device.index] = card_launches.get(device.index, 0) + 1
-        key = (name, device.index)
-        entry_launches[key] = entry_launches.get(key, 0) + 1
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -167,31 +167,6 @@ def batched_flip(imgs: torch.Tensor, src_hw,
     return torch.gather(imgs, axis, idx.expand(imgs.shape))
 
 
-def crop_indices(src_hw, x: int, y: int, width: int, height: int,
-                 bh: int, bw: int) -> tuple[np.ndarray, np.ndarray]:
-    """The rows (B, height) and columns (B, width) of a plan-static crop
-    rect in a (bh, bw) bucket, as int64 host tables: the origin clamped
-    per image like ``crop_image``'s, every index clamped to the bucket."""
-    hw = np.asarray(src_hw, dtype=np.int64)
-    # clip(origin, 0, max(dim_i - 1, 0)) per image
-    cy = np.clip(hw[:, 0] - 1, 0, max(y, 0))
-    cx = np.clip(hw[:, 1] - 1, 0, max(x, 0))
-    ry = np.clip(cy[:, None] + np.arange(height), 0, bh - 1)
-    rx = np.clip(cx[:, None] + np.arange(width), 0, bw - 1)
-    return ry, rx
-
-
-def gather_planar(imgs: torch.Tensor, ry: torch.Tensor,
-                  rx: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, h, w): image i's rows ry[i] (B, h) and
-    columns rx[i] (B, w), index tensors on the device of ``imgs``."""
-    b, c = imgs.shape[:2]
-    dev = imgs.device
-    bi = torch.arange(b, device=dev)[:, None, None, None]
-    ci = torch.arange(c, device=dev)[None, :, None, None]
-    return imgs[bi, ci, ry[:, None, :, None], rx[:, None, None, :]]
-
-
 def batched_crop(imgs: torch.Tensor, src_hw, x: int, y: int, width: int,
                  height: int) -> torch.Tensor:
     """Plan-static crop rect, clamped per image like ``crop_image``.
@@ -204,10 +179,17 @@ def batched_crop(imgs: torch.Tensor, src_hw, x: int, y: int, width: int,
     edge, which shifts the crop origin; per-row and per-column clamped
     indices keep the origin exact, and what lies past an image's valid
     extent is cropped off when the output is finished."""
-    ry, rx = crop_indices(src_hw, x, y, width, height, int(imgs.shape[2]),
-                          int(imgs.shape[3]))
-    return gather_planar(imgs, *(torch.from_numpy(t).to(imgs.device)
-                                 for t in (ry, rx)))
+    b, c, bh, bw = imgs.shape
+    dev = imgs.device
+    hw = _extents(src_hw, dev)
+    # clip(origin, 0, max(dim_i - 1, 0)) per image
+    cy = (hw[:, 0] - 1).clamp(min=0, max=max(y, 0))
+    cx = (hw[:, 1] - 1).clamp(min=0, max=max(x, 0))
+    ry = (cy[:, None] + torch.arange(height, device=dev)).clamp(0, bh - 1)
+    rx = (cx[:, None] + torch.arange(width, device=dev)).clamp(0, bw - 1)
+    bi = torch.arange(b, device=dev)[:, None, None, None]
+    ci = torch.arange(c, device=dev)[None, :, None, None]
+    return imgs[bi, ci, ry[:, None, :, None], rx[:, None, None, :]]
 
 
 def batched_rotate(imgs: torch.Tensor, src_hw, angle: float) -> torch.Tensor:

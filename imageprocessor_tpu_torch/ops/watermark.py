@@ -232,9 +232,7 @@ def _anchor_traced(position: str, img_w, img_h, width_px, height_px):
 
 def watermark_planar_(imgs: torch.Tensor, src_hw: np.ndarray,
                       tile: WatermarkTile, color: tuple[int, int, int],
-                      alpha: float, position: str,
-                      strip: tuple[int, int, int, int] | None = None
-                      ) -> torch.Tensor:
+                      alpha: float, position: str) -> torch.Tensor:
     """Blend ``tile`` into each image of a (B, 3, H, W) u8 canvas, in place.
 
     src_hw: (B, 2) valid dims; the text anchors to each image's valid
@@ -243,48 +241,32 @@ def watermark_planar_(imgs: torch.Tensor, src_hw: np.ndarray,
     same amount (zeros where the text falls outside the window), exactly
     as the reference's ``_blend_at_planar``. Every image's window is
     gathered, blended and scattered back at once: the window table is
-    built on the host and copied with the tile. Returns ``imgs``.
-
-    strip: (base, lo, hi, width) when ``imgs`` is a column strip of a
-    canvas ``width`` wide: its column c is the canvas's column base + c.
-    The text anchors and its window clamps in the whole canvas, and only
-    the canvas's columns [lo, hi) are blended, so that strips which
-    together own each column once blend every pixel once."""
+    built on the host and copied with the tile. Returns ``imgs``."""
     b, _, h, w = imgs.shape
-    base, lo, hi, full_w = strip if strip is not None else (0, 0, w, w)
     th, tw = tile.coverage.shape
-    win_h, win_w = min(th, h), min(tw, full_w)
-    # the strip's window: as wide as the canvas's or the strip, placed to
-    # hold every column of the canvas's window that the strip owns
-    sw = min(win_w, hi - lo)
-    geo = np.zeros((b, 7), np.int64)   # dy, dx, ty, tx, valid h, valid w, sx
+    win_h, win_w = min(th, h), min(tw, w)
+    geo = np.zeros((b, 6), np.int64)   # dy, dx, ty, tx, valid h, valid w
     for i, (vh, vw) in enumerate(np.asarray(src_hw, dtype=np.int64)):
         bx, by = _anchor_traced(position, int(vw), int(vh), tile.width_px,
                                 tile.height_px)
         x0, y0 = int(bx), int(by) - tile.ascent
-        dx = min(max(x0, 0), full_w - win_w)
+        dx = min(max(x0, 0), w - win_w)
         dy = min(max(y0, 0), h - win_h)
         geo[i] = (dy, dx, min(max(dy - y0 + th, 0), 3 * th - win_h),
-                  min(max(dx - x0 + tw, 0), 3 * tw - win_w), vh, vw,
-                  min(max(dx, lo), hi - sw))
+                  min(max(dx - x0 + tw, 0), 3 * tw - win_w), vh, vw)
     dev = imgs.device
-    dy, dx, ty, tx, vh, vw, sx = torch.from_numpy(geo).to(dev).unbind(1)
+    dy, dx, ty, tx, vh, vw = torch.from_numpy(geo).to(dev).unbind(1)
     padded = torch.from_numpy(_pad_tile(tile)).to(dev)
     r = torch.arange(win_h, device=dev)
-    c = torch.arange(sw, device=dev)
+    c = torch.arange(win_w, device=dev)
     rows = (dy[:, None] + r)[:, None, :, None]          # (B, 1, win_h, 1)
-    cols = (sx[:, None] + c)[:, None, None, :]          # (B, 1, 1, sw)
-    tcol = (tx + sx - dx)[:, None] + c                  # the tile's column
-    cov = padded[(ty[:, None] + r)[:, :, None],
-                 tcol.clamp(0, 3 * tw - 1)[:, None, :]]
-    inside = ((rows < vh[:, None, None, None]) & (cols < vw[:, None, None, None])
-              & (cols >= dx[:, None, None, None])
-              & (cols < dx[:, None, None, None] + win_w))
+    cols = (dx[:, None] + c)[:, None, None, :]          # (B, 1, 1, win_w)
+    cov = padded[(ty[:, None] + r)[:, :, None], (tx[:, None] + c)[:, None, :]]
+    inside = (rows < vh[:, None, None, None]) & (cols < vw[:, None, None, None])
     m = cov[:, None] * inside.to(torch.float32) * np.float32(alpha).item()
     bi = torch.arange(b, device=dev)[:, None, None, None]
     ci = torch.arange(3, device=dev)[None, :, None, None]
-    cols = cols - base
-    region = imgs[bi, ci, rows, cols].to(torch.float32)  # (B, 3, win_h, sw)
+    region = imgs[bi, ci, rows, cols].to(torch.float32)  # (B, 3, win_h, win_w)
     col = torch.tensor(color, dtype=torch.float32).to(dev)[None, :, None, None]
     blended = region * (1.0 - m) + col * m
     imgs[bi, ci, rows, cols] = torch.clamp(torch.round(blended), 0, 255).to(torch.uint8)

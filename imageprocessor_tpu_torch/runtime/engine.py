@@ -24,14 +24,11 @@ The path of one task:
    switch does;
 2. items are grouped by (bucket, plan, layout) and padded to a power-of-
    two batch (runtime/batcher, a copy of the reference's);
-3. device, on the engine's next free replica (its cards and a stream on
-   each, parallel/mesh.py; with several, process_tasks runs its groups
-   side by side from a thread each). With a space axis of s the group is
-   split into s column strips of its bucket, strip k on the replica's
-   card k, and every step below runs once per strip (models/strips.py);
-   the host stitches the strips' outputs. Kernel B1 decodes the
-   coefficient canvases into the planar bucket (HWC groups are uploaded
-   and permuted instead); the plan's
+3. device, on the engine's next free replica (one card and its stream,
+   parallel/mesh.py; with several, process_tasks runs its groups side
+   by side from a thread each): kernel B1 decodes the coefficient
+   canvases into the planar bucket (HWC groups are uploaded and permuted
+   instead); the plan's
    resamples run through kernel B2 (the first thumbnail + resize pair)
    and kernel B4 (every other one); crop, flip, rotate and grayscale are
    the tensor ops of ops/extra.py; a watermark the splice does not serve
@@ -58,11 +55,11 @@ fallback of the coefficient routes. Failures are classified like the
 reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
 device; nacked for redelivery).
 
-A coefficient group on one card is staged without a host bucket canvas:
-each upload is scanned into a reused slab (runtime/staging.py; page-locked
-on a card) and its planes are copied from there straight into their
-slots of the group's canvases, zeroed on the card. Every other group is
-packed into host canvases (runtime/batcher.py ``Group.pack``) and copied.
+A coefficient group is staged without a host bucket canvas: each upload
+is scanned into a reused slab (runtime/staging.py; page-locked on a card)
+and its planes are copied from there straight into their slots of the
+group's canvases, zeroed on the card. An HWC group is packed into a host
+canvas (runtime/batcher.py ``Group.pack``) and copied.
 
 The stages are spans (utils/tracing.py): ``decode`` and ``encode`` per
 upload, ``save`` per stored rendition inside ``encode``; ``device`` per
@@ -79,7 +76,6 @@ slabs because every slab was out.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import queue
@@ -105,7 +101,6 @@ from imageprocessor_tpu_torch.errors import (
 )
 from imageprocessor_tpu_torch.kernels import KernelError
 from imageprocessor_tpu_torch.models.pipeline import plan_output_specs, step_chw
-from imageprocessor_tpu_torch.models.strips import Strips, step_strips
 from imageprocessor_tpu_torch.models.plan import (
     InvalidParamsError,
     NormalizedOp,
@@ -124,11 +119,7 @@ from imageprocessor_tpu_torch.ops.jpeg_kernels import decode_coefs, encode_420
 from imageprocessor_tpu_torch.ops.resize import resize_image
 from imageprocessor_tpu_torch.ops.thumbnail import thumbnail_image
 from imageprocessor_tpu_torch.ops.watermark import watermark_image
-from imageprocessor_tpu_torch.parallel.mesh import (
-    replica_devices,
-    strip_bounds,
-    strip_halos,
-)
+from imageprocessor_tpu_torch.parallel.mesh import replica_devices
 from imageprocessor_tpu_torch.runtime import coeftx, hostcodec, splice
 from imageprocessor_tpu_torch.runtime.batcher import (
     MAX_BATCH,
@@ -219,16 +210,6 @@ def _d2h(copy) -> np.ndarray:
     return out
 
 
-def _to_host(o, h: int, w: int) -> np.ndarray:
-    """A device output's top-left (h, w) on the host: a (B, 3, H, W)
-    tensor, the StripOut of a strip run, or a host array already."""
-    if isinstance(o, torch.Tensor):
-        return _d2h(lambda: o[:, :, :h, :w].cpu().numpy())
-    if isinstance(o, np.ndarray):
-        return o[:, :, :h, :w]
-    return _d2h(lambda: o.to_host(h, w))
-
-
 @dataclass
 class Artifact:
     operation: str
@@ -254,42 +235,31 @@ class TorchProcessingEngine:
                  jpeg_quality: int = DEFAULT_JPEG_QUALITY,
                  device_jpeg: bool | None = None,
                  data_axis: int | None = None,
-                 space_axis: int | None = 1,
-                 devices: list | None = None):
+                 devices: list[torch.device] | None = None):
         self.store = object_store
-        # Multi-card serving, the reference's (data x space) grid: one
-        # engine drives every replica, each group whole on the next free
-        # one; a replica is ``space_axis`` cards, and splits each group
-        # into that many column strips, one per card. ``devices`` names
-        # the replicas outright, each a device (``space_axis`` strips on
-        # it) or a sequence of one device per strip: two replicas, or two
-        # strips, may share a card
-        space = max(1, int(space_axis or 1))
+        # Data-parallel serving: one engine drives every replica, each
+        # group whole on the next free one. ``devices`` names them
+        # outright, one device per replica: two replicas may share a card,
+        # each with its stream
         if devices is not None:
-            self.replicas = [tuple(resolve_device(x) for x in (
-                d if isinstance(d, (list, tuple)) else [d] * space))
-                for d in devices]
-            if not self.replicas or len({len(r) for r in self.replicas}) != 1:
+            if not devices or any(not isinstance(d, (str, torch.device))
+                                  for d in devices):
                 raise ValueError("devices must name at least one replica, "
-                                 "each with as many strips")
+                                 f"one device each, got {devices!r}")
+            self.devices = [resolve_device(d) for d in devices]
         else:
-            self.replicas = replica_devices(device, data_axis, space)
-        # each replica's first card: process_single's, and the pipelined
-        # worker's count of device threads
-        self.devices = [r[0] for r in self.replicas]
+            self.devices = replica_devices(device, data_axis)
         self.device = self.devices[0]
-        self.space_axis = len(self.replicas[0])
         # groups each replica ran (how evenly the groups spread)
-        self.replica_groups = [0] * len(self.replicas)
-        # several replicas: a stream on each of their cards, the free ones
-        # in a queue, and a thread each for process_tasks' groups; one
-        # replica runs in the caller's thread on its cards' current streams
+        self.replica_groups = [0] * len(self.devices)
+        # several replicas: a stream each on a card, the free ones in a
+        # queue, and a thread each for process_tasks' groups; one replica
+        # runs in the caller's thread on its current stream
         self._free = self._replicas = None
-        self._streams: list = [[]]
+        self._streams: list = [None]
         if len(self.devices) > 1:
-            self._streams = [[torch.cuda.Stream(device=d)
-                              for d in dict.fromkeys(r) if d.type == "cuda"]
-                             for r in self.replicas]
+            self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                             else None for d in self.devices]
             self._free = queue.SimpleQueue()
             for k in range(len(self.devices)):
                 self._free.put(k)
@@ -301,7 +271,7 @@ class TorchProcessingEngine:
         # staging slabs for the coefficient scans: one group being scanned
         # and one in the device stage
         self._slabs = SlabPool(2 * self.batch_size, pinned=any(
-            d.type == "cuda" for r in self.replicas for d in r))
+            d.type == "cuda" for d in self.devices))
         self.jpeg_quality = jpeg_quality
         # IMAGEPROCESSOR_DEVICE_JPEG, read once as the reference reads it:
         # 0 keeps JPEG decode and encode on the host, 1 puts them on the
@@ -693,14 +663,12 @@ class TorchProcessingEngine:
             kind=TRANSIENT) for i, r in enumerate(results)]
 
     def _upload(self, imgs, group, device: torch.device) -> torch.Tensor:
-        """Put packed rows of a group on ``device`` as a planar (B, 3, Hb,
-        Wb) u8 bucket: kernel B1 for coefficient rows (operands already on
-        the device, as ``_stage_coefs`` leaves them, are not copied), a
-        permute for HWC."""
+        """A group's rows on ``device`` as a planar (B, 3, Hb, Wb) u8
+        bucket: kernel B1 for the coefficient operands ``_stage_coefs``
+        left there, a copy and a permute for Group.pack's HWC canvas."""
         if group.layout.startswith("coef"):
             fh, fw = coef_factors(group.layout)
-            yc, cbc, crc, qt, cv = (a if isinstance(a, torch.Tensor)
-                                    else _h2d(a, device) for a in imgs)
+            yc, cbc, crc, qt, cv = imgs
             with span("launch"):
                 return decode_coefs(yc, cbc, crc, qt, cv, fh, fw, group.bucket)
         x = _h2d(imgs, device)
@@ -753,34 +721,6 @@ class TorchProcessingEngine:
         METRICS.inc("engine_h2d_pinned_bytes", pinned)
         return (*canvases, *tables), src_hw
 
-    def _upload_strips(self, imgs, src_hw, group, cards) -> Strips:
-        """Put packed rows of a group on a replica's cards as column strips
-        (parallel/mesh.py): strip k, its own columns and their halo, on
-        card k. Kernel B1 decodes each strip's coefficient columns, the
-        valid chroma width rebased to the strip (at least 1: an image that
-        ends before the strip gives pixels there that no output reads); HWC
-        rows are split the same way and permuted on each card."""
-        hb, wb = group.bucket
-        bounds = strip_bounds(wb, len(cards))
-        parts = []
-        for (a, b), dev in zip(strip_halos(bounds), cards):
-            if group.layout.startswith("coef"):
-                fh, fw = coef_factors(group.layout)
-                yc, cbc, crc, qt, cv = imgs
-                e = -(-b // (8 * fw)) * 8 * fw   # whole MCUs, inside the canvas
-                cvk = cv.copy()
-                cvk[:, 1] = np.clip(cv[:, 1] - a // fw, 1, (e - a) // fw)
-                ops = [_h2d(np.ascontiguousarray(x), dev) for x in (
-                    yc[:, :, a:e], cbc[:, :, a // fw:e // fw],
-                    crc[:, :, a // fw:e // fw], qt, cvk)]
-                with span("launch"):
-                    parts.append(decode_coefs(*ops, fh, fw, (hb, b - a)))
-            else:
-                x = _h2d(np.ascontiguousarray(imgs[:, :, a:b]), dev)
-                with span("launch"):
-                    parts.append(x.permute(0, 3, 1, 2).contiguous())
-        return Strips(parts, bounds, src_hw)
-
     def device_group(self, group):
         """Stage 2: one packed group through the device. Returns (plan,
         per-op host outputs, out_hws, layout). An output is a (B, 3, h, w)
@@ -788,8 +728,8 @@ class TorchProcessingEngine:
         ("splice", op) for a rendition the finish stage emits from the
         scanned coefficients (a spliced watermark, a coefficient-domain
         transform). With several replicas the group runs whole on the
-        next free one, on its cards' streams; callers on several threads
-        keep every replica busy. A ``device`` span covers the call, the
+        next free one, on its stream; callers on several threads keep
+        every replica busy. A ``device`` span covers the call, the
         wait for a replica included; inside it ``pack``, ``h2d``,
         ``launch`` and ``d2h`` spans. The group's staging slabs go back to
         the pool when it returns: the copies from them are complete."""
@@ -798,14 +738,12 @@ class TorchProcessingEngine:
                       hw=[tuple(int(v) for v in it.hw) for it in group.items]):
                 if self._free is None:
                     self.replica_groups[0] += 1
-                    return self._device_group(group, self.replicas[0])
+                    return self._device_group(group, self.device)
                 k = self._free.get()
                 try:
                     self.replica_groups[k] += 1
-                    with contextlib.ExitStack() as streams:
-                        for stream in self._streams[k]:
-                            streams.enter_context(torch.cuda.stream(stream))
-                        return self._device_group(group, self.replicas[k])
+                    with torch.cuda.stream(self._streams[k]):
+                        return self._device_group(group, self.devices[k])
                 finally:
                     self._free.put(k)
         finally:
@@ -813,7 +751,7 @@ class TorchProcessingEngine:
                 for it in group.items:
                     self._slabs.give(it.image[0])
 
-    def _device_group(self, group, cards: tuple[torch.device, ...]):
+    def _device_group(self, group, device: torch.device):
         plan: OperationPlan = group.items[0].payload[3]
         n_real = len(group.items)
 
@@ -885,31 +823,22 @@ class TorchProcessingEngine:
         specs = plan_output_specs(run_plan, {run[oi]: v
                                              for oi, v in aspect_long.items()
                                              if oi in run})
+        if group.layout.startswith("coef"):
+            imgs, src_hw = self._stage_coefs(group, b, device)
+        else:
+            with span("pack", images=n_real):
+                imgs, src_hw = group.pack(pad_batch_to=b)
+        METRICS.inc("engine_pack_images", n_real)
+        x = self._upload(imgs, group, device)
+        del imgs   # a staged group's canvases: free on the card before the step
+        with span("launch"):
+            outs = step_chw(x, src_hw, {run[oi]: v for oi, v in out_hws.items()
+                                        if oi in run}, specs)
 
         # each output with valid dims leaves the device cropped to the
         # group's largest valid extent, rounded up to /64
         def _q64(v: int) -> int:
             return -(-v // 64) * 64
-
-        crops = {oi: (_q64(int(hw[:n_real, 0].max())), _q64(int(hw[:n_real, 1].max())))
-                 for oi, hw in out_hws.items()}
-        if len(cards) == 1 and group.layout.startswith("coef"):
-            imgs, src_hw = self._stage_coefs(group, b, cards[0])
-        else:
-            with span("pack", images=n_real):
-                imgs, src_hw = group.pack(pad_batch_to=b)
-        METRICS.inc("engine_pack_images", n_real)
-        run_hws = {run[oi]: v for oi, v in out_hws.items() if oi in run}
-        if len(cards) == 1:
-            x = self._upload(imgs, group, cards[0])
-            del imgs   # a staged group's canvases: free on the card before the step
-            with span("launch"):
-                outs = step_chw(x, src_hw, run_hws, specs)
-        else:
-            x = self._upload_strips(imgs, src_hw, group, cards)
-            with span("launch"):
-                outs = step_strips(x, run_hws, specs, {
-                    run[oi]: v for oi, v in crops.items() if oi in run})
 
         max_h = max(it.hw[0] for it in group.items)
         max_w = max(it.hw[1] for it in group.items)
@@ -921,7 +850,8 @@ class TorchProcessingEngine:
             o = outs[run[oi]]
             oh, ow = o.shape[2:]
             if oi in out_hws:
-                oh, ow = min(crops[oi][0], oh), min(crops[oi][1], ow)
+                vh, vw = out_hws[oi][:n_real].max(axis=0)
+                oh, ow = min(_q64(int(vh)), oh), min(_q64(int(vw)), ow)
             elif op.type in FULL_BUCKET_OPS:
                 # a full-bucket output that every item wants as a JPEG: the
                 # encode front half runs on the device and the finish stage
@@ -933,50 +863,30 @@ class TorchProcessingEngine:
                     outs_np.append(self._encode_coefs(o, group, max_h, max_w))
                     continue
                 oh, ow = min(_q64(max_h), oh), min(_q64(max_w), ow)
-            outs_np.append(_to_host(o, oh, ow))
+            outs_np.append(_d2h(lambda: o[:, :, :oh, :ow].cpu().numpy()))
         METRICS.inc("engine_device_images", n_real)
         return plan, outs_np, out_hws, "chw"
 
-    def _encode_coefs(self, o, group, max_h: int, max_w: int):
+    def _encode_coefs(self, canvas: torch.Tensor, group, max_h: int,
+                      max_w: int):
         """A full-bucket output every item wants as a JPEG: kernel B3 over
         the group's largest valid extent rounded up to /16 (edges past each
         image's valid dims replicate; a bucket narrower than that extent is
         padded, the pad never read), then the int16 canvases to the host.
-        Pad rows get valid (1, 1). A StripOut (a strip run) is encoded
-        strip by strip on each strip's card, each strip's valid width
-        rebased to it, and its canvases stitched on the host."""
+        Pad rows get valid (1, 1)."""
         mh, mw = -(-max_h // 16) * 16, -(-max_w // 16) * 16
-        parts = ([(0, o)] if isinstance(o, torch.Tensor) else
-                 [(int(r[0, 0]), p) for p, r in zip(o.parts, o.ranges) if r[0, 0] < mw])
-        hw = np.ones((parts[0][1].shape[0], 2), dtype=np.int32)
-        hw[:len(group.items)] = [it.hw for it in group.items]
+        rgb = canvas[:, :, :mh, :mw]
+        if tuple(rgb.shape[2:]) != (mh, mw):
+            rgb = torch.nn.functional.pad(
+                rgb, (0, mw - rgb.shape[3], 0, mh - rgb.shape[2]))
+        vh = np.ones((canvas.shape[0], 2), dtype=np.int32)
+        vh[:len(group.items)] = [it.hw for it in group.items]
         qt = quality_qtables(self.jpeg_quality)
-        coefs = []
-        for x0, canvas in parts:
-            ew = min(mw - x0, -(-canvas.shape[3] // 16) * 16)
-            rgb = canvas[:, :, :mh, :ew]
-            if tuple(rgb.shape[2:]) != (mh, ew):
-                rgb = torch.nn.functional.pad(
-                    rgb, (0, ew - rgb.shape[3], 0, mh - rgb.shape[2]))
-            vh = hw.copy()
-            vh[:, 1] = np.clip(hw[:, 1] - x0, 1, ew)
-            vh_t = torch.from_numpy(vh).to(canvas.device)
-            qt_t = torch.from_numpy(qt.astype(np.float32)).to(canvas.device)
-            with span("launch"):
-                coefs.append((x0, encode_420(rgb, vh_t, qt_t)))
-        if len(coefs) == 1:
-            return ("coef420", *(_d2h(lambda c=c: c.cpu().numpy())
-                                for c in coefs[0][1]), qt)
-        b = hw.shape[0]
-        yc = np.empty((b, mh, mw), np.int16)
-        cbc = np.empty((b, mh // 2, mw // 2), np.int16)
-        crc = np.empty_like(cbc)
-        for x0, (y, cb, cr) in coefs:
-            x1 = x0 + int(y.shape[2])
-            yc[:, :, x0:x1] = _d2h(lambda: y.cpu().numpy())
-            cbc[:, :, x0 // 2:x1 // 2] = _d2h(lambda: cb.cpu().numpy())
-            crc[:, :, x0 // 2:x1 // 2] = _d2h(lambda: cr.cpu().numpy())
-        return ("coef420", yc, cbc, crc, qt)
+        vh_t = torch.from_numpy(vh).to(canvas.device)
+        qt_t = torch.from_numpy(qt.astype(np.float32)).to(canvas.device)
+        with span("launch"):
+            coefs = encode_420(rgb, vh_t, qt_t)
+        return ("coef420", *(_d2h(lambda c=c: c.cpu().numpy()) for c in coefs), qt)
 
     def finish_item(self, group, i: int, plan, outs_np, out_hws,
                     layout: str = "chw") -> EngineResult:

@@ -96,22 +96,25 @@ class Worker:
         self.cfg = cfg
         # Resolve DEVICE_PLATFORM before any backend opens: a worker on a
         # host without a card (and without DEVICE_PLATFORM=cpu) is refused
-        # here and now, not at its first task. So is a mesh the host's
-        # cards cannot hold, by name: DEVICE_DATA_AXIS x DEVICE_SPACE_AXIS
-        # cards above the local count, or beside one named card.
+        # here and now, not at its first task. So are the mesh axes the
+        # port does not serve, by name: the space axis above 1, and a data
+        # axis above the local cards or beside one named card.
         device = apply_device_platform(cfg) if engine is None else None
-        n, s = cfg.device.data_axis, cfg.device.space_axis
-        need = max(n, 1) * max(s, 1)
-        if device is not None and device.type == "cuda" and need > 1:
+        if cfg.device.space_axis > 1:
+            raise ValueError(
+                f"DEVICE_SPACE_AXIS={cfg.device.space_axis}: the space axis "
+                "is not served on the port (a group runs whole on one card); "
+                "use 0 or 1")
+        n = cfg.device.data_axis
+        if device is not None and device.type == "cuda" and n > 1:
             have = torch.cuda.device_count()
             one = torch.device(cfg.device.platform or "cuda").index is not None
-            if need > have or one:
+            if n > have or one:
                 raise ValueError(
                     f"DEVICE_DATA_AXIS={n}: this host has {have} CUDA "
                     "card(s)" + (f" and DEVICE_PLATFORM={cfg.device.platform} "
                                  "names one" if one else "")
-                    + f"; with DEVICE_SPACE_AXIS={s} the mesh needs {need} "
-                    f"cards, use at most {have} in all")
+                    + f"; use at most {have}")
         self.meta = meta or build_metadata_store(cfg.db)
         self.store = store or build_object_store(cfg.storage)
         self.broker = broker or build_broker(cfg.broker)
@@ -123,10 +126,9 @@ class Worker:
             self.store, device=cfg.device.platform or "cuda",
             codec_threads=cfg.worker.concurrency,
             batch_size=cfg.worker.batch_size,
-            # DEVICE_DATA_AXIS x DEVICE_SPACE_AXIS: one worker process
-            # drives that many local cards, each group whole on one replica
-            # of DEVICE_SPACE_AXIS cards, in column strips (0 or 1: one)
-            data_axis=cfg.device.data_axis, space_axis=cfg.device.space_axis)
+            # DEVICE_DATA_AXIS: above 1, one worker process drives that
+            # many local cards, each group whole on one (0 or 1: one card)
+            data_axis=cfg.device.data_axis)
         self._stop = threading.Event()
         self._idle_sleep = max(cfg.worker.batch_deadline_ms / 1000.0, 0.005)
         # Hung-device-RPC watchdog (utils/watchdog.py): a wedged device

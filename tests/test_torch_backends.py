@@ -726,17 +726,20 @@ def test_worker_refuses_a_multi_gpu_mesh_by_name(stubs, kind, axis, size):
         env = topology_env(kafka.address, s3.endpoint, pg)
         cfg = port_config.load({**env, "DEVICE_PLATFORM": "cpu", axis: str(size)})
         cls = PORT.workers[kind]
-        # on the CPU both axes are served: a data axis of n > 1 is n
-        # replicas, a space axis of s > 1 one replica of s CPU strips
-        w = cls(cfg)
-        replicas = size if axis == "DEVICE_DATA_AXIS" and size > 1 else 1
-        strips = size if axis == "DEVICE_SPACE_AXIS" and size > 1 else 1
-        assert w.engine.devices == [torch.device("cpu")] * replicas
-        assert w.engine.replicas == [(torch.device("cpu"),) * strips] * replicas
-        assert w.engine.device == torch.device("cpu")
-        assert isinstance(w.broker, port_kafka.KafkaBroker)
-        w.close()
-        w.engine.close()
+        if size > 1 and axis == "DEVICE_SPACE_AXIS":
+            with pytest.raises(ValueError,
+                               match="DEVICE_SPACE_AXIS=.*space axis is not served"):
+                cls(cfg)
+            assert s3.requests == 0                  # refused before any backend
+        else:
+            # a data axis above 1 on the CPU: that many replicas
+            w = cls(cfg)
+            replicas = size if axis == "DEVICE_DATA_AXIS" and size > 1 else 1
+            assert w.engine.devices == [torch.device("cpu")] * replicas
+            assert w.engine.device == torch.device("cpu")
+            assert isinstance(w.broker, port_kafka.KafkaBroker)
+            w.close()
+            w.engine.close()
     finally:
         kafka.close()
 

@@ -30,10 +30,7 @@ and B2. Replicas: each kernel launched on a second card while the first
 is current equals its plain version there (hosts with two cards or
 more); an engine with two replicas on one card (two streams, two
 threads), and one with data_axis=2 over two cards, give artifacts
-byte-identical to one replica's. The space axis: two strips on one card,
-and two strips over two cards (hosts with two cards or more), give
-artifacts byte-identical to one card's, each of B1-B4 launched once per
-strip.
+byte-identical to one replica's.
 """
 
 import numpy as np
@@ -594,7 +591,7 @@ def test_every_kernel_launches_on_its_operands_card(cuda):
     assert after.get(0, 0) == before.get(0, 0)
 
 
-def _replica_uploads(extra_plans=()):
+def _replica_uploads():
     import io
 
     from PIL import Image as PILImage
@@ -615,14 +612,13 @@ def _replica_uploads(extra_plans=()):
     P, T = OperationParams, OperationType
     plans = [[P(T.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
               P(T.RESIZE, {"width": 1024, "height": 768, "keep_aspect": True})],
-             [P(T.FLIP, {"direction": "vertical"}), P(T.RESIZE, {"width": 320, "height": 240})],
-             *extra_plans]
+             [P(T.FLIP, {"direction": "vertical"}), P(T.RESIZE, {"width": 320, "height": 240})]]
     return [(ProcessingTask(id=f"t{k}{i}", image_id=f"i{k}{i}", original_path="o",
                             bucket="b", operations=ops, format="jpeg"), blob)
             for k, ops in enumerate(plans) for i, blob in enumerate(blobs)]
 
 
-def _replica_run(extra_plans=(), **kw):
+def _replica_run(**kw):
     from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
 
     class Store:
@@ -635,7 +631,7 @@ def _replica_run(extra_plans=(), **kw):
     store = Store()
     eng = TorchProcessingEngine(store, **kw)
     try:
-        res = eng.process_tasks(_replica_uploads(extra_plans))
+        res = eng.process_tasks(_replica_uploads())
     finally:
         eng.close()
     assert all(r.result.status.value == "completed" for r in res), \
@@ -672,72 +668,3 @@ def test_data_axis_two_over_two_cards_matches_one(cuda, monkeypatch):
     assert two == one and all(groups), groups
     for card in (0, 1):
         assert after.get(card, 0) > before.get(card, 0), (before, after)
-
-
-def _space_plans():
-    from imageprocessor_tpu_torch.domain import OperationParams as P
-    from imageprocessor_tpu_torch.domain import OperationType as T
-
-    return [[P(T.FLIP, {"direction": "horizontal"}), P(T.GRAYSCALE, {}),
-             P(T.WATERMARK, {"text": "strips", "position": "center"})],
-            [P(T.THUMBNAIL, {"size": 200, "crop_to_fit": False}),
-             P(T.CROP, {"x": 100, "y": 40, "width": 500, "height": 300}),
-             P(T.ROTATE, {"angle": 90}), P(T.ROTATE, {"angle": 30})]]
-
-
-@pytest.fixture()
-def pillow_font(tmp_path, monkeypatch):
-    """A GPU host may have none of the fonts the watermark's lookup knows:
-    name Pillow's own."""
-    from PIL import ImageFont
-
-    from imageprocessor_tpu_torch.ops import watermark as wm
-
-    font = tmp_path / "pillow-default.ttf"
-    font.write_bytes(ImageFont.load_default(36).font_bytes)
-    monkeypatch.setenv("IMAGEPROCESSOR_FONT", str(font))
-    monkeypatch.setattr(wm, "_DEFAULT_FONT_PATH", None)
-
-
-def _strip_launches(**kw):
-    """-> (artifacts, launches of B1-B4 in the run)."""
-    from imageprocessor_tpu_torch import kernels
-
-    with kernels.count_lock:
-        before = (jpeg_kernels.launches, fr.launches,
-                  jpeg_kernels.encode_launches, pr.launches)
-    blobs, _ = _replica_run(_space_plans(), **kw)
-    with kernels.count_lock:
-        after = (jpeg_kernels.launches, fr.launches,
-                 jpeg_kernels.encode_launches, pr.launches)
-    return blobs, [a - b for a, b in zip(after, before)]
-
-
-def test_two_strips_on_one_card_match_one(cuda, pillow_font, monkeypatch):
-    """space_axis=2 with both strips on cuda:0: the artifacts of one
-    card, byte for byte (B3's canvases included, splice off), and each of
-    B1-B4 launched twice as often."""
-    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
-    one, n1 = _strip_launches(device="cuda:0")
-    two, n2 = _strip_launches(devices=["cuda:0"], space_axis=2)
-    assert two == one
-    assert all(n1) and n2 == [2 * n for n in n1], (n1, n2)
-
-
-def test_two_strips_over_two_cards_match_one(cuda, pillow_font, monkeypatch):
-    """space_axis=2 over cuda:0 and cuda:1: byte-identical to one card,
-    and every kernel launched on both cards."""
-    from imageprocessor_tpu_torch import kernels
-
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two cards")
-    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
-    one, n1 = _strip_launches(device="cuda:0")
-    with kernels.count_lock:
-        before = dict(kernels.card_launches)
-    two, n2 = _strip_launches(device="cuda", space_axis=2)
-    with kernels.count_lock:
-        after = dict(kernels.card_launches)
-    assert two == one and n2 == [2 * n for n in n1], (n1, n2)
-    for card in (0, 1):
-        assert after.get(card, 0) - before.get(card, 0) == sum(n1), (before, after)

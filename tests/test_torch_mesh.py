@@ -112,20 +112,15 @@ def eight_cards(monkeypatch):
 def test_make_devices_shapes(eight_cards):
     assert make_devices() == [torch.device("cuda", i) for i in range(8)]
     assert make_devices(3) == [torch.device("cuda", i) for i in range(3)]
-    assert make_devices(8, space=1) == make_devices()
-    # a space axis is served: its replicas take consecutive cards
-    assert make_devices(8, space=2) == make_devices()
-    assert make_devices(6, space=3) == make_devices(6)
+    assert make_devices(None) == make_devices(8)
 
 
-@pytest.mark.parametrize("n,space,message", [
-    (0, 1, "must be positive"), (-2, 1, "must be positive"),
-    (999, 1, "requested 999 devices, have 8"),
-    (6, 4, "n_devices=6 not divisible by space=4"),
-    (8, 3, "n_devices=8 not divisible by space=3")])
-def test_make_devices_refusals(eight_cards, n, space, message):
+@pytest.mark.parametrize("n,message", [
+    (0, "must be positive"), (-2, "must be positive"),
+    (999, "requested 999 devices, have 8")])
+def test_make_devices_refusals(eight_cards, n, message):
     with pytest.raises(ValueError, match=message):
-        make_devices(n, space=space)
+        make_devices(n)
 
 
 def test_make_devices_counts_the_hosts_cards():
@@ -142,11 +137,11 @@ def test_replica_devices(eight_cards, device, axis, want):
     got = replica_devices(device, axis)
     assert len(got) == want
     if device == "cuda:3":
-        assert got == [(torch.device("cuda", 3),)]
+        assert got == [torch.device("cuda", 3)]
     elif device == "cpu":
-        assert got == [(torch.device("cpu"),)] * want
+        assert got == [torch.device("cpu")] * want
     else:
-        assert got == [(torch.device("cuda", i),) for i in range(want)]
+        assert got == [torch.device("cuda", i) for i in range(want)]
 
 
 @pytest.mark.parametrize("device,axis,message", [

@@ -1,6 +1,6 @@
 """The device stage's staging slabs (runtime/staging.py) and the engine's
-``_stage_coefs`` against the path they replace, ``Group.pack`` + ``_upload``,
-on the CPU (the slabs are plain numpy memory here; the recycling is the
+``_stage_coefs`` against the path they replace, ``Group.pack`` and a copy
+of each of its canvases, on the CPU (the slabs are plain numpy memory here; the recycling is the
 card's).
 
 * for every coefficient layout B1 decodes (coef:22, coef:12, coef:21,
@@ -14,8 +14,7 @@ card's).
 * an exhausted pool falls back to planes of their own, counts
   ``engine_stage_pool_misses`` and gives the same results; a slab never
   given back is freed with its planes and the pool allocates in its place;
-* the strip path and the HWC path still pack: what they upload is
-  ``Group.pack``'s, and the strips' outputs equal one card's;
+* the HWC path still packs: what it uploads is ``Group.pack``'s;
 * ``process_tasks`` counts each plane byte in ``engine_h2d_bytes`` and
   ``engine_h2d_pinned_bytes`` and returns every slab;
 * the pool under many threads hands no slab to two holders at once.
@@ -118,10 +117,11 @@ def decode_group(eng, ops, blobs, fmts=None):
 
 
 def packed(group, b, device):
-    """The path the staging replaces: Group.pack's host canvases, which
-    ``_upload`` then copies."""
+    """The path the staging replaces: Group.pack's host canvases, each
+    copied to ``device`` in an ``h2d`` span of its own."""
     with span("pack", images=len(group.items)):
-        return group.pack(pad_batch_to=b)
+        imgs, src_hw = group.pack(pad_batch_to=b)
+    return [engine_mod._h2d(a, device) for a in imgs], src_hw
 
 
 def b1_operands(monkeypatch):
@@ -269,41 +269,29 @@ def test_streams_b1_does_not_decode_take_no_slab():
         eng.close()
 
 
-@pytest.mark.parametrize("path", ["strips", "hwc"])
+@pytest.mark.parametrize("path", ["hwc"])
 def test_the_strip_and_hwc_paths_upload_what_group_pack_packs(monkeypatch, path):
-    """Neither path stages: each uploads Group.pack's canvases (the parent's
-    bytes), read from pooled planes on the strip path, whose slabs go back
-    after the call; two strips give one card's outputs."""
+    """An HWC group is not staged: it uploads Group.pack's canvas (the
+    parent's bytes), and holds no slab."""
     monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
-    blobs = ([jpeg(300, 400, k) for k in range(3)] if path == "strips"
-             else [png(300, 400, k) for k in range(3)])
-    one = TorchProcessingEngine(Store(), device="cpu")
-    two = TorchProcessingEngine(Store(), devices=["cpu"], space_axis=2)
-    eng = two if path == "strips" else one
+    blobs = [png(300, 400, k) for k in range(3)]
+    eng = TorchProcessingEngine(Store(), device="cpu")
     uploaded = []
 
     def stage(*_a):
-        raise AssertionError("a strip or HWC group was staged")
+        raise AssertionError("an HWC group was staged")
 
     monkeypatch.setattr(eng, "_stage_coefs", stage)
-    name = "_upload_strips" if path == "strips" else "_upload"
-    inner = getattr(eng, name)
-    monkeypatch.setattr(eng, name, lambda imgs, *a: uploaded.append(imgs) or inner(imgs, *a))
+    inner = eng._upload
+    monkeypatch.setattr(eng, "_upload", lambda imgs, *a: uploaded.append(imgs) or inner(imgs, *a))
     try:
         group = decode_group(eng, DEFAULT + [MARK], blobs)
-        got = eng.device_group(group)
-        assert eng._slabs.slabs()[1] == 0
-        want = packed(group, 4, None)[0]
-        for a, b in zip(uploaded[0] if path == "strips" else [uploaded[0]],
-                        want if path == "strips" else [want]):
-            assert np.array_equal(a, b)
-        if path == "strips":
-            assert all(eng._slabs.owns(it.image[0]) is False for it in group.items)
-            assert_outputs_equal(got, one.device_group(
-                decode_group(one, DEFAULT + [MARK], blobs)))
+        assert group.layout == "hwc"
+        eng.device_group(group)
+        assert eng._slabs.slabs() == (0, 0)
+        assert np.array_equal(uploaded[0], group.pack(pad_batch_to=4)[0])
     finally:
-        one.close()
-        two.close()
+        eng.close()
 
 
 def test_process_tasks_stages_every_plane_from_a_slab(monkeypatch):
