@@ -26,7 +26,7 @@ Phases (any failure exits non-zero):
    in a SQLiteMetadataStore, ack. Eight seeded 3000 x 4000 q85 4:2:0
    JPEGs plus 1920 x 1080, 640 x 480 (an upscale) and a 4:4:4 source,
    all encoded with OpenCV. It checks every task COMPLETED, the
-   artifacts' dims, that both kernels launched during the run, that the
+   artifacts' dims, that B0, B1 and B2 launched during the run, that the
    group outputs match the plain versions, and that the small images
    match the float64 Go oracle; a warm rerun reports host-clock
    throughput and the engine's stage times;
@@ -197,12 +197,13 @@ Phases (any failure exits non-zero):
    card's launches counted (else one line says it was skipped);
 21. staging — one group of 32 3000 x 4000 q85 uploads (eight seeded
    photos, four times each) with the default plan through the engine's
-   device stage by both paths, in turns: the staged path (each upload
-   scanned into a reused page-locked slab, its planes copied straight into
-   the card's canvases) and the packed path (Group.pack's host canvases,
-   then pageable copies), each on fresh scans after a warm call. Kernel
+   device stage by both paths, in turns: the staged path (each upload's
+   entropy-coded bytes staged in a reused page-locked slab, copied to the
+   card and decoded there by kernel B0 into the group's canvases) and the
+   packed path (the host scan's planes in Group.pack's host canvases, then
+   pageable copies), each on fresh uploads after a warm call. Kernel
    B1's operands and the group's outputs must be byte-identical, every
-   plane byte of the staged path must come from a slab
+   stream byte of the staged path must come from a slab
    (engine_h2d_pinned_bytes, no engine_stage_pool_misses). It prints each
    path's pack time, its H2D rate (engine_h2d_bytes over the h2d spans),
    its device span and its peak card memory above the allocation before;
@@ -214,7 +215,27 @@ Phases (any failure exits non-zero):
    and the group is held to perfbench/group_reference.py: each member's
    partitions are ``range_assign`` of the members' ids, and every judged
    upload was completed once, by ``owner`` of its key. It prints each
-   run's rate, the completions by member and the count misrouted.
+   run's rate, the completions by member and the count misrouted;
+23. entropy — kernel B0 on eight of perfbench's 3000 x 4000 camera
+   originals: one group of 32 (the eight four times) and groups of one,
+   each upload's canvases bit-exact against the host scan's planes and
+   every status 0. It prints B0's time per upload in each (wall time of
+   the wrapper's call on zeroed canvases, its waits for the sync counter
+   and the status included), its sync rounds, the host scan's time per
+   upload on one thread, the plain version's, and B0's least bytes (the
+   stream read once, and written once the 32-byte sectors that hold a
+   block's DC or a non-zero coefficient, counted from the host scan's
+   planes) at 3.35 TB/s.
+
+Where the checks rebuild kernel B1's input with ``Group.pack`` (phases 5,
+11, 21), an upload that B0 decodes on the card is packed from its host
+scan (``host_planes``): those checks hold B0 too. Every phase that serves
+baseline JPEGs on the card through the engine (5, 9, 11, 15, 18, 19, 21,
+22) counts B0's launches beside the others' and fails where B0 never
+launched or ``engine_card_entropy_fallbacks`` is above 0; the routes that
+keep the host scan (the splice, the device-JPEG switch off, phase 12's
+single-image path, phase 17's bench steps on host-scanned planes) must
+not launch it.
 
 B2's and B4's bounds are counted twice: by the bytes their taps touch,
 and by the 32-byte sectors those bytes lie in (the card's memory moves
@@ -234,7 +255,9 @@ nvidia-smi gives them, the one before it a JSON summary of the kernels
 steps, phase 18's Kafka tasks and the runs of phases 19, 21 and 22 among them, max
 error, ms, plain_ms, bound_ms, bound_by,
 roofline_share, byte_bound_ms, and library_ms: null, since no single
-PyTorch call computes any of the four functions); the last line is
+PyTorch call computes any of the four functions; B0's row gives its ms
+and plain_ms per 12 MP upload from phase 23, its byte bound, its launches
+by phase and the host scan's ms beside them); the last line is
 {"ok": true, "device": {...}}. Only imageprocessor_tpu_torch
 is imported: neither jax nor the reference package imageprocessor_tpu.
 """
@@ -505,7 +528,7 @@ def text_box(wm, text: str, position: str, h: int, w: int):
 # ---------------------------------------------------------------- the service
 
 SVC_PSNR_DB = 32.0   # a q85 JPEG rendition against the oracle's pixels (phase 14)
-KERNEL_KEYS = ("B1", "B2", "B3", "B4")
+KERNEL_KEYS = ("B0", "B1", "B2", "B3", "B4")
 
 
 def free_port() -> int:
@@ -541,11 +564,43 @@ def image_size(data: bytes) -> tuple[int, int]:
 
 def kernel_counters():
     from imageprocessor_tpu_torch.ops import fused_resample as fr
-    from imageprocessor_tpu_torch.ops import jpeg_kernels
+    from imageprocessor_tpu_torch.ops import jpeg_entropy, jpeg_kernels
     from imageprocessor_tpu_torch.ops import planar_resample as pr
 
-    return {"B1": (jpeg_kernels, "launches"), "B2": (fr, "launches"),
-            "B3": (jpeg_kernels, "encode_launches"), "B4": (pr, "launches")}
+    return {"B0": (jpeg_entropy, "launches"), "B1": (jpeg_kernels, "launches"),
+            "B2": (fr, "launches"), "B3": (jpeg_kernels, "encode_launches"),
+            "B4": (pr, "launches")}
+
+
+def entropy_counts() -> dict:
+    """The engine's B0 counters in this process since METRICS' last reset:
+    uploads B0 decoded, and uploads it flagged."""
+    from imageprocessor_tpu_torch.utils.metrics import METRICS
+
+    c = METRICS.snapshot()["counters"]
+    return {k: int(c.get(f"engine_card_entropy_{k}", 0))
+            for k in ("uploads", "fallbacks")}
+
+
+def require_card_entropy(what: str, launched: int, got: dict) -> None:
+    """Fail unless B0 launched and flagged no upload (``entropy_counts``)."""
+    if launched == 0 or got["uploads"] == 0 or got["fallbacks"]:
+        fail(f"{what}: B0 launches {launched}, {got}")
+
+
+def host_planes(group):
+    """``group`` with each upload kernel B0 decodes on the card carrying
+    its host scan's planes and tables instead, which ``Group.pack``
+    packs: the checks that rebuild B1's input from the host then hold
+    B0's canvases too."""
+    from dataclasses import replace
+
+    from imageprocessor_tpu_torch.runtime.batcher import Group
+    from imageprocessor_tpu_torch.runtime.engine import CardUpload
+
+    return Group(group.bucket, group.plan_key, [
+        replace(it, image=it.image.host_scan())
+        if isinstance(it.image, CardUpload) else it for it in group.items])
 
 
 def uploads_of(blobs, png_blob):
@@ -915,6 +970,8 @@ def phase_workers(blobs, png_blob) -> dict:
                 if any(v == 0 for v in counts.values()):
                     fail(f"{kind}: a kernel never launched from the HTTP uploads: "
                          f"{counts}")
+                require_card_entropy(f"{kind}: the HTTP uploads", counts["B0"],
+                                     entropy_counts())
                 for name, (_f, _d, _m, flags, _s) in ups.items():
                     want = expected_dims(flags, src_wh[name], keep_aspect_dims)
                     for op in want:
@@ -1044,7 +1101,9 @@ def phase_bench(card: str, step_ms: float) -> dict:
                                         iters=bench.SMOKE["iters"], **geo)
     db, _ = bench.quick_psnr_check(cuda)
     counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-    if any(v == 0 for v in counts.values()) or db <= BENCH_PSNR_DB:
+    # the bench's steps start from host-scanned planes: no B0
+    if (any(v == 0 for k, v in counts.items() if k != "B0") or counts["B0"]
+            or db <= BENCH_PSNR_DB):
         fail(f"the bench's steps in process: launches {counts}, PSNR {db:.2f} dB")
     log(f"[17 bench] in process at the --smoke shape: splice-off step "
         f"{step['device_jpeg_step_images_per_sec']:.1f} images/s, PSNR {db:.2f} dB; "
@@ -1430,6 +1489,7 @@ def phase_topology(card: str, oracle) -> dict:
         counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         if counts["B1"] == 0 or counts["B2"] == 0:
             fail(f"B1 or B2 never launched from the Kafka tasks: {counts}")
+        require_card_entropy("phase 18's Kafka tasks", counts["B0"], entropy_counts())
         log(f"[18 topology] {card}: launches in process from the Kafka tasks of "
             f"(a) and (b): {counts}")
 
@@ -1550,15 +1610,21 @@ def phase_routes(card: str, oracle, blobs: list) -> dict:
     from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
     from imageprocessor_tpu_torch.service.worker import Worker
 
+    from imageprocessor_tpu_torch.utils.metrics import METRICS
+
     counters = kernel_counters()
     launched = dict.fromkeys(KERNEL_KEYS, 0)
 
     def counted(fn):
-        """fn() with every launch count set to 0 before; -> (result,
-        launches), the launches added to the phase's."""
+        """fn() with every launch count and METRICS set to 0 before; ->
+        (result, launches), the launches added to the phase's. B0 must
+        flag no upload."""
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        METRICS.reset()
         out = fn()
+        if entropy_counts()["fallbacks"]:
+            fail(f"phase 19: B0 flagged uploads: {entropy_counts()}")
         got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         for k, v in got.items():
             launched[k] += v
@@ -1611,10 +1677,12 @@ def phase_routes(card: str, oracle, blobs: list) -> dict:
         rates = {}
         for name, ops in plans.items():
             (_, rates[name, 0]), got = counted(lambda: run(off, ops))
-            if got["B1"] or got["B3"] or (name == "default" and not got["B2"]):
+            if (got["B0"] or got["B1"] or got["B3"]
+                    or (name == "default" and not got["B2"])):
                 fail(f"phase 19 {name}, DEVICE_JPEG=0: launches {got}")
             (_, rates[name, 1]), got1 = counted(lambda: run(on, ops))
-            if not got1["B1"] or (name == "flip" and not got1["B3"]):
+            if (not got1["B0"] or not got1["B1"]
+                    or (name == "flip" and not got1["B3"])):
                 fail(f"phase 19 {name}, DEVICE_JPEG unset: launches {got1}")
             log(f"[19 routes] {card}: {name} plan, {len(blobs)} sources "
                 f"(8 x 12 MP among them): engine_images_per_sec "
@@ -1789,7 +1857,7 @@ def phase_staging(card: str) -> dict:
         """The packed path: Group.pack's host canvases, each copied to the
         card from pageable memory."""
         with span("pack", images=len(group.items)):
-            imgs, src_hw = group.pack(pad_batch_to=b)
+            imgs, src_hw = host_planes(group).pack(pad_batch_to=b)
         return [engine_mod._h2d(a, device) for a in imgs], src_hw
 
     def scanned():
@@ -1832,6 +1900,7 @@ def phase_staging(card: str) -> dict:
             "h2d_bytes": c["engine_h2d_bytes"],
             "pinned_share": c.get("engine_h2d_pinned_bytes", 0) / c["engine_h2d_bytes"],
             "misses": c.get("engine_stage_pool_misses", 0),
+            "entropy": entropy_counts(),
             "device_ms": t["span_device_ms"]["sum"], "peak_mb": peak / 1e6}
 
     try:
@@ -1861,9 +1930,108 @@ def phase_staging(card: str) -> dict:
         if st["pinned_share"] < 0.95 or st["misses"]:
             fail(f"phase 21: staged copies from slabs {st['pinned_share']:.4f}, "
                  f"misses {st['misses']}")
+        if st["entropy"] != {"uploads": n, "fallbacks": 0}:
+            fail(f"phase 21: the staged path's B0 counters {st['entropy']}")
+    launched = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    require_card_entropy("phase 21", launched["B0"], stats["staged"][0]["entropy"])
     log(f"[21 staging] {card}: B1's operands and the outputs byte-identical over "
         "both paths")
     return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def phase_entropy(card: str) -> dict:
+    """Phase 23: kernel B0 per 12 MP upload beside the host scan and the
+    plain version; every canvas bit-exact against the host scan."""
+    from perfbench import pool
+
+    from imageprocessor_tpu_torch.ops import jpeg_entropy as je
+    from imageprocessor_tpu_torch.runtime import hostcodec
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2300000023)
+    blobs = [pool.encode(x) for x in pool.synthesize(gen, 8, 3000, 4000, "cuda")]
+    t0 = time.perf_counter()
+    scans = [hostcodec.scan_jpeg_coefficients(b) for b in blobs]
+    host_ms = (time.perf_counter() - t0) / len(blobs) * 1e3
+
+    def sectors(planes) -> int:
+        """The 32-byte sectors B0 writes for one upload: those holding a
+        block's DC or a non-zero coefficient (each plane's rows are whole
+        sectors: 4000 and 2000 int16 wide)."""
+        total = 0
+        for p in planes:
+            wrote = p != 0
+            wrote[::8, ::8] = True
+            total += int(wrote.reshape(-1, 16).any(axis=1).sum())
+        return total
+
+    def group(bl, device):
+        """B0's operands for ``bl`` as one group on ``device``, and a call
+        that zeroes the canvases, waits, then times the decode."""
+        streams = [je.stage(b) for b in bl]
+        ops = je.upload(streams, list(range(len(bl))), device)
+        canvases = [torch.zeros((len(bl), *p.shape), dtype=torch.int16,
+                                device=device) for p in scans[0][0]]
+
+        def call():
+            for c in canvases:
+                c.zero_()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            status, rounds = je.decode(ops, canvases)
+            return (time.perf_counter() - t) * 1e3, status, rounds
+        return canvases, call, sum(st.nbytes for st in streams)
+
+    def timed(call, repeat=5):
+        runs = [call() for _ in range(repeat)]
+        return min(r[0] for r in runs), runs[-1][1], runs[-1][2]
+
+    n0 = je.launches
+    out = {"host_scan_ms": host_ms}
+    big = [blobs[k % len(blobs)] for k in range(32)]
+    canvases, call, stream_bytes = group(big, "cuda")
+    call()   # the module's first launch
+    ms32, status, rounds = timed(call)
+    if status.tolist() != [0] * 32:
+        fail(f"phase 23: B0 flagged {status.tolist()}")
+    for i, blob in enumerate(big):
+        for c, p in zip(canvases, scans[i % len(blobs)][0]):
+            if not torch.equal(c[i].cpu(), torch.from_numpy(p)):
+                fail(f"phase 23: B0's canvas of upload {i} differs from the host scan")
+    sector_bytes = 32 * sum(sectors(scans[k % len(blobs)][0]) for k in range(32))
+    out.update(ms_per_upload_32=ms32 / 32, rounds_32=rounds,
+               stream_mb_per_upload=stream_bytes / 32 / 1e6,
+               written_mb_per_upload=sector_bytes / 32 / 1e6)
+    singles = []
+    for blob in blobs[:4]:
+        _c, call1, _n = group([blob], "cuda")
+        ms1, st1, r1 = timed(call1, 3)
+        if st1.tolist() != [0]:
+            fail(f"phase 23: B0 flagged a single upload: {st1.tolist()}")
+        singles.append((ms1, r1))
+    out["ms_per_upload_1"] = min(m for m, _r in singles)
+    out["rounds_1"] = [r for _m, r in singles]
+    cpu_canvases, cpu_call, _n = group(blobs[:1], "cpu")
+    out["plain_ms"], cpu_status, _r = cpu_call()
+    if cpu_status.tolist() != [0] or not all(
+            torch.equal(c[0], torch.from_numpy(p))
+            for c, p in zip(cpu_canvases, scans[0][0])):
+        fail("phase 23: the plain version differs from the host scan")
+    least = (stream_bytes + sector_bytes) / 32
+    out.update(bound_ms=least / HBM_BYTES_S * 1e3, bound_mb=least / 1e6,
+               launches=je.launches - n0)
+    out["roofline_share"] = out["bound_ms"] / out["ms_per_upload_32"]
+    log(f"[23 entropy] {card}: B0 {out['ms_per_upload_32']:.4f} ms per 12 MP upload "
+        f"in a group of 32 ({rounds} sync rounds), {out['ms_per_upload_1']:.3f} ms "
+        f"alone (rounds {out['rounds_1']}); host scan {host_ms:.2f} ms, plain "
+        f"version {out['plain_ms']:.0f} ms per upload; least bytes "
+        f"{out['bound_mb']:.2f} MB (stream {out['stream_mb_per_upload']:.2f} MB read, "
+        f"{out['written_mb_per_upload']:.2f} MB of sectors written) = "
+        f"{out['bound_ms']:.4f} ms at 3.35 TB/s (share {out['roofline_share']:.4f}); "
+        "canvases bit-exact against the host scan")
+    log(json.dumps({"b0": out}))
+    return out
 
 
 def group_check(run) -> dict:
@@ -1897,6 +2065,8 @@ def phase_group(card: str) -> dict:
     Returns the launches."""
     from perfbench import harness
 
+    from imageprocessor_tpu_torch.ops import jpeg_entropy
+
     seeds = (3220000001, 3220000002, 3220000003)
 
     counters = kernel_counters()
@@ -1906,6 +2076,8 @@ def phase_group(card: str) -> dict:
         line, run = harness.run_cell("kafka-topology.camera12mp-backlog", seed,
                                      10.0, False, "cuda:0")
         got = group_check(run)
+        require_card_entropy(f"phase 22 seed {seed}", jpeg_entropy.launches,
+                             entropy_counts())
         rate = line["metrics"]["images_per_s"]["value"]
         log(f"[22 group] seed {seed}: {rate:.2f} images/s, correct {line['correct']}, "
             f"failed {line['failed']}, {json.dumps(got)}, "
@@ -1933,10 +2105,11 @@ def main_sources() -> list:
 
 def main(argv: list[str] | None = None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    args.add_argument("--phase", choices=["19", "21", "22"],
+    args.add_argument("--phase", choices=["19", "21", "22", "23"],
                       help="run only phases 1, 2 and this one (19: routes "
                            "and replicas, 21: the staging, 22: the Kafka "
-                           "group; on a host with any number of cards); "
+                           "group, 23: kernel B0; on a host with any number "
+                           "of cards); "
                            "prints its launches and the card line, not the "
                            "kernels line")
     args = args.parse_args(argv)
@@ -1965,7 +2138,7 @@ def main(argv: list[str] | None = None) -> int:
     from imageprocessor_tpu_torch.models.plan import normalize_operations
     from imageprocessor_tpu_torch.ops import extra
     from imageprocessor_tpu_torch.ops import fused_resample as fr
-    from imageprocessor_tpu_torch.ops import jpeg_kernels
+    from imageprocessor_tpu_torch.ops import jpeg_entropy, jpeg_kernels
     from imageprocessor_tpu_torch.ops import planar_resample as pr
     from imageprocessor_tpu_torch.ops import watermark as wm
     from imageprocessor_tpu_torch.ops.coords import center_crop_rect, keep_aspect_dims
@@ -2014,6 +2187,8 @@ def main(argv: list[str] | None = None) -> int:
             launched = phase_staging(card)
         elif args.phase == "22":
             launched = phase_group(card)
+        elif args.phase == "23":
+            launched = phase_entropy(card)["launches"]
         else:
             blobs = [jpeg(img, sub) for img, sub in main_sources()]
             launched = phase_routes(card, oracle, blobs)
@@ -2122,10 +2297,14 @@ def main(argv: list[str] | None = None) -> int:
 
         jpeg_kernels.launches = 0
         fr.launches = 0
+        jpeg_entropy.launches = 0
+        METRICS.reset()
         t0 = time.monotonic()
         results = engine.process_tasks(work)
         wall = time.monotonic() - t0
-        launches = {"B1": jpeg_kernels.launches, "B2": fr.launches}
+        launches = {"B0": jpeg_entropy.launches, "B1": jpeg_kernels.launches,
+                    "B2": fr.launches}
+        require_card_entropy("phase 5's main path", launches["B0"], entropy_counts())
 
         for msg, task, res in zip(msgs, tasks, results):
             for art in res.artifacts:
@@ -2172,7 +2351,7 @@ def main(argv: list[str] | None = None) -> int:
         oracle_psnr = []
         for group in group_items(items, max_batch=B):
             _, outs, out_hws, _ = engine.device_group(group)
-            packed, ghw = group.pack(pad_batch_to=outs[0].shape[0])
+            packed, ghw = host_planes(group).pack(pad_batch_to=outs[0].shape[0])
             fh, fw = int(group.layout[5]), int(group.layout[6])
             dec = decode_ycbcr(*(torch.from_numpy(a).cuda() for a in packed),
                                fh=fh, fw=fw, out_h=group.bucket[0],
@@ -2325,8 +2504,7 @@ def main(argv: list[str] | None = None) -> int:
     form = {flags: [op for flag, op in zip("trw", (thumb, resize, mark()))
                     if flag in flags]
             for flags in ("t", "r", "w", "tr", "tw", "rw", "trw")}
-    counters = {"B1": (jpeg_kernels, "launches"), "B2": (fr, "launches"),
-                "B3": (jpeg_kernels, "encode_launches"), "B4": (pr, "launches")}
+    counters = kernel_counters()
     workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
     store = LocalFSObjectStore(os.path.join(workdir, "objects"))
     meta = SQLiteMetadataStore(os.path.join(workdir, "meta.db"))
@@ -2362,6 +2540,8 @@ def main(argv: list[str] | None = None) -> int:
             [(t, store.get_object(t.original_path)) for t in tasks])
         wall = time.monotonic() - t0
         counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        if entropy_counts()["fallbacks"]:
+            fail(f"form task {ops}: B0 flagged uploads: {entropy_counts()}")
         for msg, task, res in zip(msgs, tasks, results):
             for art in res.artifacts:
                 meta.save_processed_image(ProcessedImage(
@@ -2436,7 +2616,8 @@ def main(argv: list[str] | None = None) -> int:
         lsb = step = 0
         for group in plan_groups(plan):
             _, outs, out_hws, _ = engine.device_group(group)
-            packed, ghw = group.pack(pad_batch_to=quantize_batch(len(group.items)))
+            packed, ghw = host_planes(group).pack(
+                pad_batch_to=quantize_batch(len(group.items)))
             fh, fw = coef_factors(group.layout)
             dec = decode_ycbcr(*(torch.from_numpy(a).cuda() for a in packed),
                                fh=fh, fw=fw, out_h=group.bucket[0],
@@ -2472,7 +2653,7 @@ def main(argv: list[str] | None = None) -> int:
                                           [x.cpu() for x in want], dims)[0])
         return lsb, step
 
-    form_launches = {"B3": 0, "B4": 0}
+    form_launches = {"B0": 0, "B3": 0, "B4": 0}
     form_lsb = form_step = 0
     src_px = [decode_image(b)[0] for b in blobs]
     try:
@@ -2489,12 +2670,15 @@ def main(argv: list[str] | None = None) -> int:
                 stages = stage_line()
                 n_resample = sum(f in flags for f in "tr")
                 want_b3 = "w" in flags and not splice_on
+                # a spliced watermark keeps the host's splice scan
+                want_b0 = not ("w" in flags and splice_on)
                 if ((counts["B2"] > 0) != (n_resample == 2)
                         or (counts["B4"] > 0) != (n_resample == 1)
-                        or (counts["B3"] > 0) != want_b3):
+                        or (counts["B3"] > 0) != want_b3
+                        or (counts["B0"] > 0) != want_b0):
                     fail(f"plan {flags} ({mode}): launches {counts}")
-                form_launches["B4"] += counts["B4"]
-                form_launches["B3"] += counts["B3"]
+                for k in form_launches:
+                    form_launches[k] += counts[k]
                 for k, (task, res) in enumerate(pairs):
                     _, h, w = sources[k][0].shape
                     check_dims(res, h, w)
@@ -2524,7 +2708,8 @@ def main(argv: list[str] | None = None) -> int:
             [(_, res)], counts, _ = worker_steps([blob], form["trw"], fmt.lower())
             # a PNG upload's watermark stays PNG; a GIF's is re-encoded as
             # JPEG (watermark.go), through B3
-            if counts["B2"] == 0 or (counts["B3"] > 0) != (fmt == "GIF"):
+            if (counts["B2"] == 0 or (counts["B3"] > 0) != (fmt == "GIF")
+                    or counts["B0"]):
                 fail(f"{fmt} source: launches {counts}")
             check_dims(res, h, w)
             check_mark(artifact_px(res, "watermark"), artifact_px(twin, "watermark"),
@@ -2669,7 +2854,8 @@ def main(argv: list[str] | None = None) -> int:
             if not group.layout.startswith("coef"):
                 fail(f"plan {ops}: a JPEG source took layout {group.layout}")
             _, outs, out_hws, _ = engine.device_group(group)
-            packed, _ = group.pack(pad_batch_to=quantize_batch(len(group.items)))
+            packed, _ = host_planes(group).pack(
+                pad_batch_to=quantize_batch(len(group.items)))
             dec_t = engine._upload([torch.from_numpy(a).to(engine.device) for a in packed],
                                    group, engine.device)
             dec = dec_t.cpu().numpy()
@@ -2720,7 +2906,8 @@ def main(argv: list[str] | None = None) -> int:
         step = 0
         for group in plan_groups(plan):
             _, outs, _, _ = engine.device_group(group)
-            packed, ghw = group.pack(pad_batch_to=quantize_batch(len(group.items)))
+            packed, ghw = host_planes(group).pack(
+                pad_batch_to=quantize_batch(len(group.items)))
             dec_t = engine._upload([torch.from_numpy(a).to(engine.device) for a in packed],
                                    group, engine.device)
             dims = [it.hw for it in group.items]
@@ -2812,7 +2999,10 @@ def main(argv: list[str] | None = None) -> int:
                     ok = (not any(counts.values()) and n_coef == n_jpeg
                           and not {"span_pack_ms", "span_h2d_ms"} & set(snap["timings"]))
                 else:
+                    # with the splice on, a plan of coefficient-domain ops
+                    # scans on the host for the splice (rot30): no B0
                     ok = (counts["B1"] == dev["count"] and counts["B1"] >= 1
+                          and (counts["B0"] >= 1 or splice_on)
                           and counts["B4"] == 0 and n_coef == 0
                           and counts["B2"] == (counts["B1"] if pname == "mixed" else 0)
                           and counts["B3"] == (counts["B1"] if pname in b3_plans else 0))
@@ -2862,7 +3052,7 @@ def main(argv: list[str] | None = None) -> int:
         PILImage.fromarray(png_img).save(bio, format="PNG")
         png_blob = bio.getvalue()
         [(_, res)], counts, _ = worker_steps([png_blob], every, "png")
-        if counts != {"B1": 0, "B2": 1, "B3": 0, "B4": 0}:
+        if counts != {"B0": 0, "B1": 0, "B2": 1, "B3": 0, "B4": 0}:
             fail(f"PNG source, every op: launches {counts}")
         for k in counts:
             tx_launches[k] += counts[k]
@@ -2889,7 +3079,7 @@ def main(argv: list[str] | None = None) -> int:
         counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         if one.result.status is not ImageStatus.COMPLETED:
             fail(f"process_single: {one.result.error}")
-        if counts != {"B1": 0, "B2": 0, "B3": 0, "B4": 2}:
+        if counts != {"B0": 0, "B1": 0, "B2": 0, "B3": 0, "B4": 2}:
             fail(f"process_single: launches {counts}")
         for k in counts:
             single_launches[k] += counts[k]
@@ -3028,31 +3218,39 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 22. the benchmark's Kafka group against the group's reference
     group_launches = phase_group(card)
 
-    def row(name, key, source, replaces, phase, launched, err, ms, plain, b):
-        # library_ms: no single PyTorch call computes any of the four:
-        # torch has no 8x8 DCT (B1, B3), and interpolate takes one output
-        # size for the whole batch, where B2 / B4 resample per-image
-        # source windows to per-image sizes with Go's xdraw rounding
+    # ---- 23. kernel B0 per 12 MP upload
+    b0 = phase_entropy(card)
+
+    def row(name, key, source, replaces, phase, launched, err, ms, plain, b,
+            extra=None):
+        # library_ms: no single PyTorch call computes any of the five:
+        # torch has no 8x8 DCT (B1, B3) and no Huffman decode (B0), and
+        # interpolate takes one output size for the whole batch, where B2 /
+        # B4 resample per-image source windows to per-image sizes with
+        # Go's xdraw rounding
+        by_phase = {phase: launched, "11": tx_launches[key],
+                    "12": single_launches[key], "15": svc_launches[key],
+                    "17": bench_launches[key], "18": topo_launches[key],
+                    "19": route_launches[key], "21": stage_launches[key],
+                    "22": group_launches[key], **(extra or {})}
         return {"name": name, "route": "cuda",
                 "source": f"imageprocessor_tpu_torch/csrc/{source}",
-                "replaces": f"imageprocessor_tpu/ops/{replaces}",
-                "launches": (launched + tx_launches[key] + single_launches[key]
-                             + svc_launches[key] + bench_launches[key]
-                             + topo_launches[key] + route_launches[key]
-                             + stage_launches[key] + group_launches[key]),
-                "launches_by_phase": {phase: launched, "11": tx_launches[key],
-                                      "12": single_launches[key],
-                                      "15": svc_launches[key],
-                                      "17": bench_launches[key],
-                                      "18": topo_launches[key],
-                                      "19": route_launches[key],
-                                      "21": stage_launches[key],
-                                      "22": group_launches[key]},
+                "replaces": replaces and f"imageprocessor_tpu/ops/{replaces}",
+                "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b["ms"], "bound_by": b["by"],
                 "roofline_share": b["ms"] / ms,
                 "byte_bound_ms": b.get("byte", b)["ms"], "library_ms": None}
 
+    b0_row = row("jpeg_entropy_b0", "B0", "jpeg_entropy.cu", None, "5", launches["B0"],
+                 0, b0["ms_per_upload_32"], b0["plain_ms"],
+                 {"ms": b0["bound_ms"],
+                  "by": "bytes: the stream read once and the sectors written once "
+                        "(the serial chain of each subsequence, which binds, is "
+                        "not counted)"},
+                 {"9": form_launches["B0"], "23": b0["launches"]})
+    b0_row["host_scan_ms"] = b0["host_scan_ms"]
     summary = {"kernels": [
         row("jpeg_decode_b1", "B1", "jpeg_decode.cu", "pallas_jpeg.py:548",
             "5", launches["B1"], max(b1_err, main_err), b1_ms, b1_plain, b1_b),
@@ -3062,6 +3260,7 @@ def main(argv: list[str] | None = None) -> int:
             "9", form_launches["B3"], max(b3_err, form_step), b3_ms, b3_plain, b3_b),
         row("planar_resample_b4", "B4", "planar_resample.cu", "pallas_resample.py:341",
             "9", form_launches["B4"], max(b4_err, form_lsb, single_lsb), b4_ms, b4_plain, b4_b),
+        b0_row,
     ]}
     print(json.dumps(summary))
     print(card)

@@ -53,6 +53,11 @@ _SIGNATURES = {
     "ip_planar_resample": [_P, _I, _I, _I] + [_P] * 7 + [_I, _I] + [_I, _P],
     # rgb, image/channel/row strides, valid, qt, yc, cbc, crc, batch, h, w
     "ip_encode_420": [_P] + [ctypes.c_longlong] * 3 + [_P] * 5 + [_I] * 3 + [_I, _P],
+    # B0 (jpeg_entropy.cu), every phase of one group: stream, desc, segs,
+    # huff, tables, states, elems, img, changed, n, tiles, nsub,
+    # subseq_bits, max_rounds, rounds_per_check, y, cb, cr, each one's
+    # slot and row strides, host_status, host_info
+    "ip_entropy_decode": [_P] * 9 + [_I] * 6 + [_P] * 3 + [_I] * 6 + [_P] * 2 + [_I, _P],
 }
 
 # launches of every kernel per card index, for callers that count a run

@@ -9,13 +9,17 @@ worker drives it through the tasks' and results' JSON, their wire format.
 
 The path of one task:
 
-1. host: a complete JPEG is entropy-scanned into int16 coefficient planes
-   (runtime/hostcodec.py) when it has 3 components in a supported
-   sampling (4:2:0, 4:2:2, 4:4:0, 4:4:4); anything else is decoded to
-   HWC pixels by runtime/codecs.decode_image. A plan with a watermark
-   whose rendition is a JPEG scans a JPEG for the splice instead
-   (runtime/splice.py, when IMAGEPROCESSOR_JPEG_SPLICE is not 0). A plan
-   made only of watermarks and of the transforms the coefficient domain
+1. host: a complete JPEG with 3 components in a supported sampling
+   (4:2:0, 4:2:2, 4:4:0, 4:4:4) becomes coefficient planes: on a card a
+   baseline stream's entropy-coded bytes are staged for kernel B0
+   (ops/jpeg_entropy.py), which decodes them on the card in the device
+   stage; any other such stream (progressive, or on the CPU) is
+   entropy-scanned on the host into int16 planes (runtime/hostcodec.py).
+   Anything else is decoded to HWC pixels by runtime/codecs.decode_image.
+   A plan with a watermark whose rendition is a JPEG scans a JPEG for the
+   splice instead (runtime/splice.py, when IMAGEPROCESSOR_JPEG_SPLICE is
+   not 0). A plan made only of watermarks and of the transforms the
+   coefficient domain
    expresses (crop, flip, rotation by a multiple of 90 degrees:
    runtime/coeftx.py), all with JPEG renditions, then needs no pixels at
    all (layout "splice");
@@ -26,7 +30,8 @@ The path of one task:
    two batch (runtime/batcher, a copy of the reference's);
 3. device, on the engine's next free replica (one card and its stream,
    parallel/mesh.py; with several, process_tasks runs its groups side
-   by side from a thread each): kernel B1 decodes the coefficient
+   by side from a thread each): kernel B0 entropy-decodes the staged
+   streams into the group's coefficient canvases, kernel B1 decodes the
    canvases into the planar bucket (HWC groups are uploaded and permuted
    instead); the plan's
    resamples run through kernel B2 (the first thumbnail + resize pair)
@@ -55,23 +60,31 @@ fallback of the coefficient routes. Failures are classified like the
 reference: PERMANENT (bad input; acked) or TRANSIENT (storage, OS,
 device; nacked for redelivery).
 
-A coefficient group is staged without a host bucket canvas: each upload
-is scanned into a reused slab (runtime/staging.py; page-locked on a card)
-and its planes are copied from there straight into their slots of the
-group's canvases, zeroed on the card. An HWC group is packed into a host
+A coefficient group is staged without a host bucket canvas: each upload's
+stream (or, where the host scans, its planes) sits in a reused slab
+(runtime/staging.py; page-locked on a card) and is copied from there
+straight into the group's stream buffer (or its slots of the group's
+canvases), zeroed on the card. An upload B0 flags is scanned on the host
+into its slot, as the host route would have scanned it; one the host
+scanner refuses too is decoded to pixels and takes its row of the bucket,
+as an HWC group would have given it. An HWC group is packed into a host
 canvas (runtime/batcher.py ``Group.pack``) and copied.
 
 The stages are spans (utils/tracing.py): ``decode`` and ``encode`` per
 upload, ``save`` per stored rendition inside ``encode``; ``device`` per
 group, with ``pack`` (the group's layout: its canvases and tables),
 ``h2d`` (one per host-to-device copy; for a staged group one for all its
-copies, ended once the card has them), ``launch`` and one ``d2h`` per
-device-to-host copy (which first waits for the kernels) inside it.
+copies, ended once the card has them), ``entropy`` (B0's launches and
+the read of its status), ``launch`` and one ``d2h`` per device-to-host
+copy (which first waits for the kernels) inside it.
 ``engine_h2d_bytes`` and ``engine_d2h_bytes`` count the bytes copied,
 ``engine_h2d_pinned_bytes`` those copied from the slabs,
 ``engine_pack_images`` the images laid out and
-``engine_stage_pool_misses`` the coefficient uploads scanned outside the
-slabs because every slab was out.
+``engine_stage_pool_misses`` the coefficient uploads staged outside the
+slabs because every slab was out. ``engine_card_entropy_uploads`` counts
+the uploads B0 decoded, ``engine_card_entropy_fallbacks`` those it
+flagged and ``engine_entropy_sync_rounds`` its sync rounds, summed over
+groups.
 """
 
 from __future__ import annotations
@@ -107,6 +120,7 @@ from imageprocessor_tpu_torch.models.plan import (
     OperationPlan,
     normalize_operations,
 )
+from imageprocessor_tpu_torch.ops import jpeg_entropy
 from imageprocessor_tpu_torch.ops.coords import keep_aspect_dims, thumbnail_dims
 from imageprocessor_tpu_torch.ops.extra import (
     crop_image,
@@ -211,6 +225,29 @@ def _d2h(copy) -> np.ndarray:
 
 
 @dataclass
+class CardUpload:
+    """A coefficient upload whose entropy decode kernel B0 runs: its staged
+    stream and its bytes. If B0 flags it, the device stage records what the
+    host route makes of it instead: pixels (the host scanner refused the
+    stream too) or the pixel decode's error."""
+
+    stream: jpeg_entropy.Stream
+    data: bytes
+    pixels: np.ndarray | None = None
+    error: Exception | None = None
+
+    def host_scan(self):
+        """(y, cb, cr, qtabs): what the host route scans from the bytes."""
+        planes, qt, _size, _sampling = hostcodec.scan_jpeg_coefficients(self.data)
+        return (*planes, qt)
+
+
+def _slab_of(image):
+    """The array whose slab a coefficient item's operand holds."""
+    return image.stream.data if isinstance(image, CardUpload) else image[0]
+
+
+@dataclass
 class Artifact:
     operation: str
     path: str
@@ -289,6 +326,10 @@ class TorchProcessingEngine:
                     "IMAGEPROCESSOR_DEVICE_JPEG_CORES",
                     str(DEVICE_JPEG_CORE_THRESHOLD)))
         self.device_jpeg = device_jpeg
+        # kernel B0 entropy-decodes the baseline streams of a card's
+        # coefficient groups; elsewhere the host scans them
+        self._card_entropy = device_jpeg and all(
+            d.type == "cuda" for d in self.devices)
         hostcodec.library()   # build the scan library up front
         self._pool = ThreadPoolExecutor(max_workers=max(codec_threads, 1),
                                         thread_name_prefix="codec")
@@ -471,7 +512,10 @@ class TorchProcessingEngine:
         layout, valid_hw, splice_ctx).
 
         Complete JPEGs with 3 components in a supported sampling become
-        coefficient planes (layout "coef:FhFw"); everything else decodes to
+        coefficient planes (layout "coef:FhFw"): on a card, where the plan
+        asks no splice scan, a baseline one is staged for kernel B0 (a
+        CardUpload, ``_stage_entropy``) and decoded in the device stage;
+        any other is scanned on the host. Everything else decodes to
         (h, w, 3) pixels (layout "hwc"). When the plan has a watermark
         whose rendition negotiates to JPEG and the splice is enabled, the
         JPEG is scanned for the splice (runtime/splice.py) and its context
@@ -482,8 +526,7 @@ class TorchProcessingEngine:
         emitted from the scanned coefficients at finish time).
         task_format=None keeps the splice scan (the source is a JPEG, so
         the detected format negotiates to JPEG)."""
-        is_jpeg = (detect_content_type(data[:512]) == "image/jpeg"
-                   and jpeg_stream_complete(data))
+        jpeg_type = detect_content_type(data[:512]) == "image/jpeg"
         ops = plan.ops if plan is not None else ()
         fmt0 = task_format or "jpeg"
         has_wm = any(op.type is OperationType.WATERMARK for op in ops)
@@ -497,9 +540,19 @@ class TorchProcessingEngine:
             negotiate_format(fmt0, watermark=op.type is OperationType.WATERMARK)
             == "jpeg" for op in ops)
         coef_only = all_coef_types and fmt_ok_all
-        wants_splice = (is_jpeg and splice.enabled()
-                        and ((has_wm and negotiate_format(
-                            fmt0, watermark=True) == "jpeg") or coef_only))
+        splice_plan = splice.enabled() and (
+            (has_wm and negotiate_format(fmt0, watermark=True) == "jpeg")
+            or coef_only)
+        if jpeg_type and self._card_entropy and not splice_plan:
+            # the card's route, before the host's completeness test: the
+            # staging tests it (an EOI after the scan) in the library
+            staged = self._stage_entropy(data)
+            if staged is not None:
+                card, layout = staged
+                w, h = card.stream.size
+                return card, "jpeg", layout, (h, w), None
+        is_jpeg = jpeg_type and jpeg_stream_complete(data)
+        wants_splice = is_jpeg and splice_plan
 
         def coef_scan():
             """The plain coefficient scan and its context for the
@@ -566,6 +619,31 @@ class TorchProcessingEngine:
                         coef_layout(*mode), (h, w), sctx)
         arr, detected = decode_image(data)
         return arr, detected, "hwc", None, sctx
+
+    def _stage_entropy(self, data: bytes):
+        """(CardUpload, layout) for a stream kernel B0 decodes into a
+        layout kernel B1 takes: its entropy-coded bytes destuffed into a
+        slab of the staging pool (outside it, counted in
+        ``engine_stage_pool_misses``, when every slab is out). None for any
+        other stream: the host scan takes it, as it would without B0."""
+        try:
+            shapes, size, sampling = hostcodec.scan_jpeg_layout(data)
+        except hostcodec.HostCodecError:
+            return None
+        mode = _b1_mode(shapes, size, sampling)
+        if not mode:
+            return None
+        out = self._slabs.take_bytes(len(data) + 32)
+        if out is None:
+            METRICS.inc("engine_stage_pool_misses", 1)
+        try:
+            stream = jpeg_entropy.stage(data, out,
+                                        layout=(shapes, size, sampling))
+        except hostcodec.HostCodecError:
+            if out is not None:
+                self._slabs.give(out)
+            return None
+        return CardUpload(stream=stream, data=data), coef_layout(*mode)
 
     def _scan_staged(self, data: bytes):
         """``hostcodec.scan_jpeg_coefficients``, the planes of a stream
@@ -678,16 +756,24 @@ class TorchProcessingEngine:
     def _stage_coefs(self, group, b: int, device: torch.device):
         """A coefficient group's operands of kernel B1 on ``device`` with no
         host canvas: the (b, ch, cw) and two (b, ch/fh, cw/fw) int16
-        canvases zeroed on the card, each upload's three planes copied into
-        its slot [i, :ph, :pw] without blocking (from its slab, or from
-        wherever it was scanned), and the tables (pad rows' qt[:, :, 0, 0]
-        = 1) and the chroma extents as Group.pack builds them. B1 reads
-        what it reads after Group.pack and ``_h2d``, byte for byte. ->
-        ((yc, cbc, crc, qt, cv) on the device, src_hw). The ``h2d`` span
-        holds every copy and ends once the card has them."""
+        canvases zeroed on the card; each host-scanned upload's three
+        planes copied into its slot [i, :ph, :pw] without blocking (from
+        its slab, or from wherever it was scanned); each CardUpload's
+        stream copied into the group's stream buffer the same way and
+        decoded into its slot by kernel B0; the tables (pad rows' qt[:, :,
+        0, 0] = 1) and the chroma extents as Group.pack builds them. B1
+        reads what it reads after Group.pack and ``_h2d``, byte for byte.
+        -> ((yc, cbc, crc, qt, cv) on the device, src_hw). The ``h2d``
+        span holds every copy and ends once the card has them; the
+        ``entropy`` span holds B0's launches and the read of its status.
+        An upload B0 flags is scanned on the host into its slot; where the
+        host scanner refuses it too, the pixel decode's image or error is
+        left on its CardUpload (``_device_group``, ``_finish_item``)."""
         fh, fw = coef_factors(group.layout)
         ch, cw = coef_canvas(group.bucket, fh, fw)
         n = len(group.items)
+        cards = [i for i, it in enumerate(group.items)
+                 if isinstance(it.image, CardUpload)]
         with span("pack", images=n):
             canvases = [torch.zeros(shape, dtype=torch.int16, device=device)
                         for shape in ((b, ch, cw), (b, ch // fh, cw // fw),
@@ -697,13 +783,21 @@ class TorchProcessingEngine:
             cv = np.ones((b, 2), dtype=np.int32)   # chroma plane extents
             src_hw = np.zeros((b, 2), dtype=np.int32)
             for i, it in enumerate(group.items):
-                qt[i] = it.image[3]
-                cv[i] = it.image[1].shape
+                if isinstance(it.image, CardUpload):
+                    s = it.image.stream
+                    qt[i] = s.qtabs
+                    mx, my = s.geometry()[:2]
+                    cv[i] = (my * 8, mx * 8)
+                else:
+                    qt[i] = it.image[3]
+                    cv[i] = it.image[1].shape
                 src_hw[i] = it.hw
             src_hw[n:] = src_hw[n - 1]
         nbytes = pinned = 0
         with span("h2d") as attrs:
             for i, it in enumerate(group.items):
+                if isinstance(it.image, CardUpload):
+                    continue
                 planes = it.image[:3]
                 for canvas, p in zip(canvases, planes):
                     canvas[i, :p.shape[0], :p.shape[1]].copy_(
@@ -712,6 +806,13 @@ class TorchProcessingEngine:
                 nbytes += size
                 if self._slabs.owns(planes[0]):
                     pinned += size
+            ops = None
+            if cards:
+                streams = [group.items[i].image.stream for i in cards]
+                ops = jpeg_entropy.upload(streams, cards, device)
+                nbytes += ops.nbytes
+                pinned += sum(s.data.nbytes for s in streams
+                              if self._slabs.owns(s.data))
             tables = [torch.from_numpy(a).to(device) for a in (qt, cv)]
             nbytes += qt.nbytes + cv.nbytes
             if device.type == "cuda":
@@ -719,7 +820,44 @@ class TorchProcessingEngine:
             attrs["bytes"] = nbytes
         METRICS.inc("engine_h2d_bytes", nbytes)
         METRICS.inc("engine_h2d_pinned_bytes", pinned)
+        if ops is not None:
+            with span("entropy", images=len(cards)) as attrs:
+                status, rounds = jpeg_entropy.decode(ops, canvases)
+                attrs["rounds"] = rounds
+            del ops
+            flagged = [i for i, st in zip(cards, status) if st]
+            METRICS.inc("engine_card_entropy_uploads", len(cards) - len(flagged))
+            METRICS.inc("engine_card_entropy_fallbacks", len(flagged))
+            METRICS.inc("engine_entropy_sync_rounds", rounds)
+            for i in flagged:
+                self._host_fallback(group.items[i].image, i, canvases)
         return (*canvases, *tables), src_hw
+
+    @staticmethod
+    def _host_fallback(card: CardUpload, i: int, canvases) -> None:
+        """An upload B0 flagged ends as the host route ends it: its slot
+        zeroed and filled from the host scan; where the host scanner
+        refuses the stream, the pixel decode's image (or its error) is
+        kept on ``card`` for the device and finish stages."""
+        for canvas in canvases:
+            canvas[i].zero_()
+        try:
+            planes = card.host_scan()[:3]
+        except hostcodec.HostCodecError:
+            try:
+                arr, _fmt = decode_image(card.data)
+                w, h = card.stream.size
+                if arr.shape[:2] != (h, w):
+                    raise DecodeError(f"decoded {arr.shape[1]}x{arr.shape[0]}, "
+                                      f"the frame is {w}x{h}")
+                card.pixels = arr
+            except Exception as exc:  # noqa: BLE001 — as the host route's decode
+                card.error = exc
+            return
+        with span("h2d", bytes=sum(p.nbytes for p in planes)):
+            for canvas, p in zip(canvases, planes):
+                canvas[i, :p.shape[0], :p.shape[1]].copy_(torch.from_numpy(p))
+        METRICS.inc("engine_h2d_bytes", sum(p.nbytes for p in planes))
 
     def device_group(self, group):
         """Stage 2: one packed group through the device. Returns (plan,
@@ -749,7 +887,7 @@ class TorchProcessingEngine:
         finally:
             if group.layout.startswith("coef"):
                 for it in group.items:
-                    self._slabs.give(it.image[0])
+                    self._slabs.give(_slab_of(it.image))
 
     def _device_group(self, group, device: torch.device):
         plan: OperationPlan = group.items[0].payload[3]
@@ -831,6 +969,15 @@ class TorchProcessingEngine:
         METRICS.inc("engine_pack_images", n_real)
         x = self._upload(imgs, group, device)
         del imgs   # a staged group's canvases: free on the card before the step
+        for i, it in enumerate(group.items):
+            # an upload neither B0 nor the host scanner decoded: its pixels
+            # take its row, as an HWC group's pack and permute would give it
+            px = getattr(it.image, "pixels", None)
+            if px is not None:
+                h, w = it.hw
+                x[i].zero_()
+                x[i, :, :h, :w] = torch.from_numpy(
+                    np.ascontiguousarray(px[:h, :w, :3])).to(device).permute(2, 0, 1)
         with span("launch"):
             outs = step_chw(x, src_hw, {run[oi]: v for oi, v in out_hws.items()
                                         if oi in run}, specs)
@@ -901,6 +1048,9 @@ class TorchProcessingEngine:
         list (reference semantics). Pixel outputs are always planar here."""
         it = group.items[i]
         _task_idx, task, fmt, _plan = it.payload
+        error = getattr(it.image, "error", None)
+        if error is not None:   # as a failed decode fails on the host route
+            return self._failed(task, f"Failed to decode image: {error}")
         out = EngineResult(result=ProcessingResult(
             id=task.id, image_id=task.image_id, status=ImageStatus.COMPLETED))
         h, w = it.hw

@@ -22,6 +22,10 @@ NativeCodecError:
 * ``crc32c`` checks every Kafka record batch (broker/kafkawire.py); its
   source is the port's own csrc/crc32c.cpp, a copy of native/ipcodec.cpp's
   ``ip_crc32c`` (ipcodec.cpp itself needs libjpeg);
+* ``entropy_tables`` and ``copy_entropy`` stage a baseline stream for
+  kernel B0 (ops/jpeg_entropy.py): the headers' Huffman tables and
+  restart interval, and the scan's bytes destuffed (csrc/entropy_copy.cpp,
+  the port's own);
 * ``coef_rot_i16`` is the blocked rotation runtime/coeftx.py fuses a
   mirror + transpose pair onto; its source is csrc/coefrot.cpp, a copy of
   ipcodec.cpp's ``ip_coef_rot_i16``.
@@ -45,7 +49,7 @@ _REPO = pathlib.Path(__file__).resolve().parents[2]
 SOURCES = (*(_REPO / "native" / name
               for name in ("jpeg_scan.cpp", "jpeg_emit.cpp", "gifquant.cpp")),
            *(_REPO / "imageprocessor_tpu_torch" / "csrc" / name
-             for name in ("crc32c.cpp", "coefrot.cpp")))
+             for name in ("crc32c.cpp", "coefrot.cpp", "entropy_copy.cpp")))
 BUILD_DIR = _REPO / "build" / "hostcodec"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
@@ -77,6 +81,10 @@ _SIGNATURES = {
     "ip_crc32c": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32],
                   ctypes.c_uint32),
     "ip_coef_rot_i16": ([_P, ctypes.c_int64, ctypes.c_int64, _P, _I], _I),
+    "ip_jpeg_entropy_copy": ([ctypes.c_char_p, ctypes.c_int64, _I, _P,
+                              ctypes.c_int64, _P, ctypes.c_int64,
+                              ctypes.POINTER(ctypes.c_int64),
+                              ctypes.POINTER(ctypes.c_int64), _IP], _I),
 }
 
 
@@ -381,6 +389,40 @@ def emit_jpeg_transcode(ctx: JpegSpliceContext, reenc: np.ndarray) -> bytes:
     if rc < 0:
         raise HostCodecError(f"splice emit failed (rc={rc})")
     return out[:rc].tobytes()
+
+
+def entropy_tables(data: bytes):
+    """(tables, restart interval, progressive) from the headers alone:
+    per component its id, quantization slot and DC / AC table ids, the
+    eight DHT specs (``dht_bits`` (8, 17), ``dht_vals`` (8, 256),
+    ``dht_present``; DC tables 0-3, then AC) and the quantization tables
+    per slot (``qt_slots`` (4, 64), natural order). Raises HostCodecError
+    on headers the scanner refuses."""
+    return _scan_tables(library(), data)
+
+
+def copy_entropy(data: bytes, restart_interval: int, max_segs: int,
+                 out: np.ndarray) -> tuple[int, np.ndarray, bool]:
+    """The scan's entropy-coded bytes copied into ``out`` (uint8, at least
+    ``len(data) + 32`` long) with FF 00 destuffed, up to the first marker
+    that is not a restart marker the interval expects, then zeros to a
+    16-byte multiple at least 16 bytes on. -> (the destuffed bytes, each
+    restart segment's first byte as int64, at most ``max_segs``
+    segments; whether an EOI follows the scan's header, as
+    codecs.jpeg_stream_complete finds it). Raises HostCodecError when
+    the headers hold no scan."""
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be C-contiguous uint8")
+    segs = np.zeros(max(int(max_segs), 1), dtype=np.int64)
+    nbytes, nsegs = ctypes.c_int64(), ctypes.c_int64()
+    complete = ctypes.c_int()
+    rc = library().ip_jpeg_entropy_copy(
+        data, len(data), int(restart_interval), _ptr(out), out.size,
+        _ptr(segs), segs.size, ctypes.byref(nbytes), ctypes.byref(nsegs),
+        ctypes.byref(complete))
+    if rc != 0:
+        raise HostCodecError(f"entropy copy failed (rc={rc})")
+    return int(nbytes.value), segs[:nsegs.value], bool(complete.value)
 
 
 def is_progressive(data: bytes) -> bool:

@@ -1,15 +1,19 @@
-"""Reused host staging for the coefficient planes kernel B1 decodes.
+"""Reused host staging for what the device stage copies to the card per
+coefficient upload.
 
-The engine scans each JPEG upload's quantized coefficients (its own MCU
-grid: Y, Cb, Cr) into a slab of this pool, and the device stage copies
-the planes straight from the slab into their slots of the card's canvas
+On a card the engine stages each baseline JPEG upload's destuffed
+entropy-coded bytes in a slab of this pool for kernel B0 (``take_bytes``);
+an upload the host scans instead has its quantized coefficients (its own
+MCU grid: Y, Cb, Cr) scanned into one (``take``). The device stage copies
+from the slab straight into the group's buffer on the card
 (runtime/engine.py ``_stage_coefs``). On a card the slabs are
 page-locked, so those copies are DMA transfers the host neither stages
 nor waits for one by one; on the CPU they are plain numpy memory and the
 recycling is the same.
 
 A slab is one flat int16 array; an upload's planes are views of its
-start, one after the other. Slabs are allocated lazily, each once, at a
+start, one after the other, and its stream a byte view of its start.
+Slabs are allocated lazily, each once, at a
 power of two of bytes (the pinned allocator rounds to one anyway), and
 at most ``cap`` are alive. The pool hands a slab out by its planes and
 takes it back by the first of them (its address is the slab's). A slab
@@ -46,6 +50,24 @@ class SlabPool:
         """Zeroed C-contiguous int16 planes of ``shapes``, views of one
         slab; None when every slab the pool may hold is out."""
         n = sum(h * w for h, w in shapes)
+        slab = self._slab(n)
+        if slab is None:
+            return None
+        slab[:n] = 0
+        planes, at = [], 0
+        for h, w in shapes:
+            planes.append(slab[at:at + h * w].reshape(h, w))
+            at += h * w
+        return planes
+
+    def take_bytes(self, n: int) -> np.ndarray | None:
+        """``n`` bytes of one slab, as uint8 and not zeroed; None when
+        every slab the pool may hold is out."""
+        slab = self._slab((n + 1) // 2)
+        return None if slab is None else slab.view(np.uint8)[:n]
+
+    def _slab(self, n: int) -> np.ndarray | None:
+        """A slab of at least ``n`` int16s, now out."""
         with self._lock:
             fits = [k for k, s in enumerate(self._free) if s.size >= n]
             if fits:   # the smallest slab that holds the planes
@@ -58,12 +80,7 @@ class SlabPool:
             else:
                 return None
             self._out[slab.ctypes.data] = slab
-        slab[:n] = 0
-        planes, at = [], 0
-        for h, w in shapes:
-            planes.append(slab[at:at + h * w].reshape(h, w))
-            at += h * w
-        return planes
+        return slab
 
     def owns(self, plane: np.ndarray) -> bool:
         """Whether ``plane`` is the first plane of a slab that is out."""

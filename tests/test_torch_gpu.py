@@ -30,7 +30,14 @@ and B2. Replicas: each kernel launched on a second card while the first
 is current equals its plain version there (hosts with two cards or
 more); an engine with two replicas on one card (two streams, two
 threads), and one with data_axis=2 over two cards, give artifacts
-byte-identical to one replica's.
+byte-identical to one replica's. Kernel B0 (the entropy decode): over
+sizes, samplings, qualities and restart intervals, with subsequences
+short enough to take several sync rounds and on perfbench's 12 MP camera
+originals, its canvases, status and rounds equal its plain version's and
+its planes the host scan's, bit for bit; it flags a cut stream and an
+invalid code as the plain version does; and the engine's card route
+renders the host route's renditions byte for byte, a flagged upload
+included.
 """
 
 import numpy as np
@@ -668,3 +675,117 @@ def test_data_axis_two_over_two_cards_matches_one(cuda, monkeypatch):
     assert two == one and all(groups), groups
     for card in (0, 1):
         assert after.get(card, 0) > before.get(card, 0), (before, after)
+
+
+# ---------------------------------------------------------------- kernel B0
+
+@pytest.mark.parametrize("restart", [0, 1, 7])
+@pytest.mark.parametrize("quality", [50, 85, 95])
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "gray"])
+@pytest.mark.parametrize("size", [(8, 8), (17, 23), (255, 129), (640, 480)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_b0_matches_plain_and_host_scan(cuda, size, sampling, quality, restart):
+    from imageprocessor_tpu_torch.ops import jpeg_entropy as je
+    from jpeg_streams import assert_scans_equal, decode, jpeg
+
+    blob = jpeg(*size, sampling, quality, restart, seed=size[0] * size[1] + quality)
+    n = je.launches
+    got, status, rounds = decode([blob], cuda)
+    assert je.launches - n == 5 + rounds + (-rounds % je.ROUNDS_PER_CHECK)
+    want, want_status, want_rounds = decode([blob], "cpu")
+    assert status.tolist() == want_status.tolist() == [0] and rounds == want_rounds
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert_scans_equal(got, [blob])
+
+
+def test_b0_short_subsequences_and_flags_match_plain(cuda):
+    """Several sync rounds (hundreds of subsequences of 64 bits too), a cut
+    stream and an invalid code: B0's status, rounds and canvases are the
+    plain version's."""
+    from imageprocessor_tpu_torch.ops import jpeg_entropy as je
+    from jpeg_streams import bad_code, cut, decode, jpeg
+
+    blob = jpeg(640, 480, "420", 95, 0, seed=7)
+    cases = {"short": ([blob], 256), "shortest": ([blob], 64),
+             "cut": ([cut(blob), blob], None),
+             "bad code": ([bad_code(blob), blob], None)}
+    for name, (blobs, bits) in cases.items():
+        got, status, rounds = decode(blobs, cuda, bits or je.SUBSEQ_BITS)
+        want, want_status, want_rounds = decode(blobs, "cpu", bits or je.SUBSEQ_BITS)
+        assert status.tolist() == want_status.tolist(), name
+        assert rounds == want_rounds, name
+        for i, st in enumerate(status):
+            if st == 0:
+                assert all(torch.equal(a[i], b[i]) for a, b in zip(got, want)), name
+        if name in ("short", "shortest"):
+            assert rounds >= 3 and status.tolist() == [0]
+        else:
+            assert status[0] != 0 and status[1] == 0
+
+
+def test_b0_on_camera_originals(cuda):
+    """perfbench's 12 MP phone-camera originals as one group: bit-exact
+    against the plain version and the host scan."""
+    from perfbench import pool
+    from jpeg_streams import assert_scans_equal, decode
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2300000123)
+    blobs = [pool.encode(x) for x in pool.synthesize(gen, 3, 3000, 4000, cuda)]
+
+    got, status, _rounds = decode(blobs, cuda)
+    want, want_status, _ = decode(blobs, "cpu")
+    assert status.tolist() == want_status.tolist() == [0, 0, 0]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert_scans_equal(got, blobs)
+
+
+def test_card_route_renders_as_the_host_route(cuda, monkeypatch):
+    """process_tasks on the card with B0 and with the host scan: the same
+    renditions, byte for byte; an upload with an invalid code falls back
+    and ends as the host route ends it."""
+    from imageprocessor_tpu_torch.domain import (
+        OperationParams,
+        OperationType,
+        ProcessingTask,
+    )
+    from imageprocessor_tpu_torch.runtime.engine import TorchProcessingEngine
+    from imageprocessor_tpu_torch.utils.metrics import METRICS
+    from jpeg_streams import bad_code, jpeg
+
+    monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
+    P, T = OperationParams, OperationType
+    ops = [P(T.THUMBNAIL, {"size": 200, "crop_to_fit": True}),
+           P(T.RESIZE, {"width": 1024, "height": 768, "keep_aspect": True}),
+           P(T.GRAYSCALE, {})]
+    blobs = [jpeg(600, 800, "420", 85, 0, seed=1), jpeg(590, 790, "444", 95, 4, seed=2),
+             bad_code(jpeg(600, 800, "420", 85, 0, seed=3))]
+
+    class Store:
+        def __init__(self):
+            self.blobs = {}
+
+        def save_processed(self, path, data, mime=None):
+            self.blobs[path] = data
+
+    def serve(card):
+        store = Store()
+        eng = TorchProcessingEngine(store, device="cuda:0", device_jpeg=True)
+        assert eng._card_entropy
+        eng._card_entropy = card
+        METRICS.reset()
+        try:
+            res = eng.process_tasks([
+                (ProcessingTask(id=f"t{k}", image_id=f"i{k}", original_path="o",
+                                bucket="images", operations=ops, format="jpeg"), b)
+                for k, b in enumerate(blobs)])
+        finally:
+            eng.close()
+        return ([(r.result.status, r.result.error) for r in res], store.blobs,
+                METRICS.snapshot()["counters"])
+
+    said, stored, c = serve(True)
+    want_said, want_stored, _ = serve(False)
+    assert said == want_said and stored == want_stored
+    assert c["engine_card_entropy_uploads"] == 2
+    assert c["engine_card_entropy_fallbacks"] == 1

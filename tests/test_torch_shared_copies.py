@@ -89,7 +89,13 @@ The copies that differ do so in named places:
   (tests/test_torch_backends.py, ROADMAP §C).
 
 utils/tracing.py is not a copy: it wraps torch.profiler where the
-original wraps jax.profiler (tests/test_torch_config.py).
+original wraps jax.profiler (tests/test_torch_config.py). Nor are the
+engine and its host helpers (runtime/engine.py, runtime/hostcodec.py,
+runtime/staging.py): they are the port's own, so the engine's card route
+for baseline uploads (kernel B0) adds no name to ADDED or DIFFERS; its
+renditions are held byte-equal to the host scan's route in
+tests/test_torch_card_entropy.py, and that route to the reference's in
+tests/test_torch_engine.py.
 """
 
 import ast
